@@ -1,0 +1,236 @@
+"""The joint Stable-NeRF train step (counterpart of
+stable_nerf_tpu/training/joint.py; reference train.py:23-107):
+
+  1. frozen-VAE encode of the (target, reference) images, no grad;
+  2. latent ground truth normalized to [0, 1];
+  3. NeRF render of target + reference rays at the latent resolution;
+  4. nerf_loss = L1(pred_target, gt_target) + L1(pred_ref, gt_ref);
+  5. conditions [pred_target·2−1 | target dirs] and [ref latent | ref dirs];
+  6. random timesteps + DDIM add_noise on the target latent;
+  7. frozen U-Net + IP-Adapter noise prediction;
+  8. sd_loss = MSE(noise_pred, noise).
+
+Gradients reach only the trainable partition: frozen tensors have
+``requires_grad`` off, so autograd computes no frozen weight gradients.
+The random draws (VAE eps, noise, timesteps, ray perturbation) can be
+injected, so a test can feed both packages the same numbers.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+import torch
+
+from ..config import NeRFConfig, TrainConfig
+from ..models.diffusion.scheduler import DDIMScheduler
+from ..models.diffusion.sd_network import (SDNetworkConfig, encode_images,
+                                           encode_images_mode, sd_forward)
+from ..models.diffusion.sd_network import trainable_mask as sd_trainable_mask
+from ..models.nerf.grid import OccupancyGridState
+from ..models.nerf.renderer import render
+from ..utils.device import resolve_device
+from ..utils.losses import l1_loss, mse_loss
+from ..utils.tree import tree_leaves, tree_map
+
+
+@dataclass(frozen=True)
+class JointConfig:
+    nerf: NeRFConfig = field(default_factory=lambda: NeRFConfig(channel_dim=4))
+    sd: SDNetworkConfig = field(default_factory=SDNetworkConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    @property
+    def latent_hw(self) -> int:
+        return self.sd.sd.latent_size
+
+
+def eval_sample_budget(n_rays: int, cfg: TrainConfig) -> Optional[int]:
+    """Static eval-render sample budget: explicit override, else 64/ray;
+    None → dense lattice eval."""
+    if cfg.sample_budget_eval is not None:
+        return cfg.sample_budget_eval
+    if cfg.sample_budget_eval_per_ray <= 0:
+        return None
+    return min(n_rays * cfg.sample_budget_eval_per_ray, n_rays * cfg.max_steps_eval)
+
+
+def joint_trainable_mask(params: Dict, scope: str = "reference") -> Dict:
+    """Bool tree over {'sd', 'nerf'}: ``reference`` trains the ip head and
+    the NeRF (train.py:179-182); ``sd`` also trains the whole U-Net.  The
+    VAE and the cached prompt conditioning stay frozen in every scope."""
+    if scope == "reference":
+        sd_mask = sd_trainable_mask(params["sd"])
+    elif scope == "sd":
+        sd_mask = {k: tree_map(lambda _, k=k: k not in ("vae", "add_text_embeds",
+                                                         "add_time_ids"), v)
+                   for k, v in params["sd"].items()}
+    else:
+        raise ValueError(f"unknown trainable scope {scope!r} (reference | sd)")
+    return {"sd": sd_mask, "nerf": tree_map(lambda _: True, params["nerf"])}
+
+
+def cast_frozen(params: Dict, mask: Dict, dtype: Optional[str]) -> Dict:
+    """Store the frozen floating-point leaves in ``dtype`` (``TrainConfig.
+    frozen_dtype``; None keeps float32).  Trainable leaves stay float32."""
+    if dtype is None:
+        return params
+    dt = getattr(torch, dtype)
+    return tree_map(lambda x, m: x if m or not x.is_floating_point() else x.to(dt),
+                    params, mask)
+
+
+def forward_iteration(params: Dict, grid_state: OccupancyGridState, batch: Dict,
+                      cfg: JointConfig, scheduler: DDIMScheduler, *,
+                      train: bool = True, compute_dtype=torch.bfloat16,
+                      sample_budget: Optional[int] = None,
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[Dict[str, torch.Tensor]] = None):
+    """One joint forward pass → (sd_loss, nerf_loss, aux).
+
+    draws: optional injected random numbers — ``vae_eps`` [2B, 4, h, w]
+      standard normal, ``noise`` [B, 4, h, w], ``timesteps`` [B] int and
+      ``perturb`` [2B·rays] uniform; any that is missing is drawn from
+      ``generator``.
+    """
+    draws = draws or {}
+
+    def draw(name, make):
+        if name in draws:
+            return draws[name]
+        if generator is None:
+            raise ValueError(f"draw {name!r} was not given and no generator was")
+        return make()
+
+    enc = cfg.latent_hw
+    C = cfg.nerf.channel_dim
+    target_image = batch["target_image"]
+    B = target_image.shape[0]
+    dev = target_image.device
+
+    # 1. frozen VAE encode in the images' dtype (float32), no grad
+    images = torch.cat([target_image, batch["reference_image"]], dim=0)
+    with torch.no_grad():
+        if cfg.train.vae_encode == "mode":
+            latents = encode_images_mode(params["sd"], images, cfg.sd)
+        else:
+            latents = encode_images(params["sd"], images, cfg.sd,
+                                    eps=draws.get("vae_eps"), generator=generator)
+    target_lt, reference_lt = latents.chunk(2, dim=0)
+
+    # 2. latent GT → [B, h·w, C] in [0, 1]
+    def to_gt(lt):
+        return (lt.permute(0, 2, 3, 1).reshape(B, -1, C) + 1.0) / 2.0
+
+    # 3. NeRF render, target and reference batched
+    rays_o = torch.cat([batch["target_rays_o"], batch["reference_rays_o"]], 0)
+    rays_d = torch.cat([batch["target_rays_d"], batch["reference_rays_d"]], 0)
+    n_rays = rays_o.shape[0] * rays_o.shape[1]
+    perturb = None
+    if train:
+        perturb = draw("perturb", lambda: torch.rand(n_rays, generator=generator,
+                                                     device=dev))
+    elif sample_budget is None:
+        sample_budget = eval_sample_budget(n_rays, cfg.train)
+    out = render(params["nerf"], grid_state, rays_o, rays_d, cfg.nerf,
+                 bg_color=cfg.train.bg_color,
+                 max_steps=cfg.train.max_steps_train if train else cfg.train.max_steps_eval,
+                 perturb=perturb, compute_dtype=compute_dtype,
+                 sample_budget=sample_budget)
+    pred_target, pred_reference = out["image"].chunk(2, dim=0)
+
+    # 4. reconstruction loss
+    nerf_loss = (l1_loss(pred_target, to_gt(target_lt))
+                 + l1_loss(pred_reference, to_gt(reference_lt)))
+
+    # 5. conditions: NeRF target latent ×2−1; the reference condition uses
+    #    the VAE latent, not the render
+    pred_target_lt = pred_target.reshape(B, enc, enc, C).permute(0, 3, 1, 2) * 2.0 - 1.0
+    t_dirs = batch["target_rays_d"].transpose(1, 2).reshape(B, 3, enc, enc)
+    r_dirs = batch["reference_rays_d"].transpose(1, 2).reshape(B, 3, enc, enc)
+    image_embeds = torch.cat([torch.cat([pred_target_lt, t_dirs], dim=1),
+                              torch.cat([reference_lt, r_dirs], dim=1)], dim=0)
+
+    # 6. noise + timesteps + add_noise
+    noise = draw("noise", lambda: torch.randn(target_lt.shape, generator=generator,
+                                              device=dev))
+    timesteps = draw("timesteps", lambda: torch.randint(
+        0, scheduler.config.num_train_timesteps, (B,), generator=generator,
+        device=dev))
+    noisy_latents = scheduler.add_noise(target_lt, noise, timesteps)
+
+    # 7-8. U-Net prediction + diffusion loss
+    noise_pred = sd_forward(params["sd"], noisy_latents, timesteps, image_embeds,
+                            cfg.sd, compute_dtype=compute_dtype)
+    sd_loss = mse_loss(noise_pred.float(), noise)
+    aux = {"pred_target_latent": pred_target, "weights_sum": out["weights_sum"],
+           "noisy_latents": noisy_latents, "noise_pred": noise_pred}
+    return sd_loss, nerf_loss, aux
+
+
+def make_optimizer(cfg: TrainConfig, params: Dict, mask: Dict) -> torch.optim.AdamW:
+    """AdamW (constant lr) over the trainable leaves of ``params``.
+
+    Sets ``requires_grad`` on the trainable leaves and clears it on the
+    frozen ones.  ``cfg.nerf_lr`` gives the NeRF leaves a param group of
+    their own.  Gradient accumulation is done by the train step."""
+    if cfg.lr_schedule != "constant":
+        raise NotImplementedError(
+            f"lr_schedule {cfg.lr_schedule!r} is not ported (constant only)")
+    groups = {"sd": [], "nerf": []}
+    for part in ("sd", "nerf"):
+        for x, m in zip(tree_leaves(params[part]), tree_leaves(mask[part])):
+            if x.is_floating_point():
+                x.requires_grad_(bool(m))
+            if m:
+                groups[part].append(x)
+    if cfg.nerf_lr is None:
+        param_groups = [{"params": groups["sd"] + groups["nerf"]}]
+    else:
+        param_groups = [{"params": groups["sd"]},
+                        {"params": groups["nerf"], "lr": cfg.nerf_lr}]
+    return torch.optim.AdamW(param_groups, lr=cfg.lr, betas=(cfg.adam_b1, cfg.adam_b2),
+                             eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
+
+
+def make_train_step(cfg: JointConfig, scheduler: DDIMScheduler,
+                    optimizer: torch.optim.Optimizer, *,
+                    sample_budget: Optional[int] = None,
+                    compute_dtype=torch.bfloat16,
+                    device: Optional[torch.device] = None):
+    """The joint train step: forward, backward into the trainable leaves,
+    and an AdamW update every ``cfg.train.grad_accum_steps`` calls (the
+    mean of the accumulated gradients, as optax.MultiSteps).
+
+    Returns ``step(params, grid_state, batch, generator=None, draws=None)``
+    → {"loss", "sd_loss", "nerf_loss"} as 0-d tensors; params update in
+    place.  Runs on ``device`` (default cuda) and refuses a batch elsewhere.
+    """
+    dev = resolve_device(device)
+    accum = cfg.train.grad_accum_steps
+    calls = [0]
+
+    def step(params, grid_state, batch, generator=None, draws=None):
+        if batch["target_image"].device.type != dev.type:
+            raise ValueError(f"batch on {batch['target_image'].device}, step "
+                             f"built for {dev}")
+        sd_loss, nerf_loss, _ = forward_iteration(
+            params, grid_state, batch, cfg, scheduler, train=True,
+            compute_dtype=compute_dtype, sample_budget=sample_budget,
+            generator=generator, draws=draws)
+        total = sd_loss + nerf_loss
+        total.backward()
+        calls[0] += 1
+        if calls[0] % accum == 0:
+            if accum > 1:
+                for group in optimizer.param_groups:
+                    for p in group["params"]:
+                        if p.grad is not None:
+                            p.grad.div_(accum)
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+        return {"loss": total.detach(), "sd_loss": sd_loss.detach(),
+                "nerf_loss": nerf_loss.detach()}
+
+    return step

@@ -1,0 +1,82 @@
+"""The port (stable_nerf_tpu_torch) stands alone: no JAX, nothing of the JAX
+package, entry points that refuse to fall back to the CPU, and a chip
+smoke script that fails without a card or without the package."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import stable_nerf_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "stable_nerf_tpu"))
+print(len(names), bad)
+"""
+
+
+def _clean_env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_port_imports_neither_jax_nor_reference_package():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(" ", 1)
+    assert int(n) >= 20
+    assert bad.strip() == "[]", bad
+
+
+def _entry_points():
+    from stable_nerf_tpu_torch.config import NeRFConfig
+    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+    from stable_nerf_tpu_torch.models.diffusion.sd_network import sd_network_init
+    from stable_nerf_tpu_torch.models.nerf.grid import grid_init
+    from stable_nerf_tpu_torch.models.nerf.network import nerf_init
+    from stable_nerf_tpu_torch.training.joint import JointConfig, make_train_step
+
+    return {
+        "nerf_init": lambda: nerf_init(0, NeRFConfig()),
+        "sd_network_init": lambda: sd_network_init(0),
+        "grid_init": lambda: grid_init(NeRFConfig()),
+        "scheduler": lambda: DDIMScheduler.create(),
+        "make_train_step": lambda: make_train_step(JointConfig(), None, None),
+    }
+
+
+@pytest.mark.parametrize("name", ["nerf_init", "sd_network_init", "grid_init",
+                                  "scheduler", "make_train_step"])
+def test_entry_points_default_to_cuda_and_refuse_without_a_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()
+
+
+def test_chip_smoke_fails_without_card_and_alone(tmp_path):
+    # in the repo: no card here, so it must exit non-zero with no result
+    if not torch.cuda.is_available():
+        out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                             env=_clean_env(), capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode != 0 and '"ok": true' not in out.stdout
+    # alone in a directory: the package is missing, whatever the device
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0 and '"ok": true' not in out.stdout
