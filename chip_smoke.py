@@ -5,7 +5,8 @@
 
 Phases, each printed as one JSON line; any failure exits non-zero:
   card         the card's name and power limit; the CUDA kernels built from
-               stable_nerf_tpu_torch/csrc/ (build seconds, ptxas report);
+               stable_nerf_tpu_torch/csrc/ (both sources compiled at once;
+               build seconds, ptxas report);
   setup        random full-width weights and a batch of one scene: the SDXL
                U-Net and VAE, the 16-level 2^19 hash grid, 512² images,
                64² latents, 256 march steps, frozen weights stored in bf16;
@@ -14,13 +15,30 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                path's first backward chunk (the batch's own march
                positions), (a') the same shape at uniform positions, (b) a
                K2-shaped table, (c) a hot row plus padding, (d) payload_bf16;
+  gather_cases the sorted row-gather kernel against its plain version, bit
+               for bit: (a) the sorted-encode floor shape (33,554,432 sorted
+               items, 16·2^19 rows, f32), (b) the reference tests' three
+               shapes, (c) padding and negative indices at an odd length,
+               (d) a bf16 table, (e) unsorted indices, (f) a width of 4,
+               (g) NaN, Inf and denormal entries;
+  encode_floor the sorted-encode floor path (scripts/
+               bench_torch_fused_render_floor.py::measure) at 2^18 samples:
+               its stage times, its own equality check, the gather launches;
   parity       the joint step at a tiny size on the card (kernel) against
                the same step on the CPU (plain versions), float32;
+  serve_parity the inference step at a tiny size (5 DDIM steps, float32) on
+               the card against the CPU, every result key;
   joint_train  the full-width joint train step (bf16 compute) for a few
                steps, with the kernel launch count of those steps;
-  profile      (with --profile DIR) one more step under torch.profiler:
-               device time by kernel and the device's idle share, the full
-               table written to DIR.
+  joint_train_budget  two more steps with sample_budget 262,144 (compaction
+               under gradient): 2 scatter launches a step, peak memory;
+  serve        the full-width inference step (512 eval march steps, 64
+               samples a ray, 50 DDIM steps, f32 VAE decode, metrics) for 3
+               requests of 2 scenes each (the first is warm-up), split by
+               stage, and one request at guidance_scale 3;
+  profile      (with --profile DIR) one more train step and one more serving
+               request under torch.profiler: device time by kernel and the
+               device's idle share, the full tables written to DIR.
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last the device
 line ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
 """
@@ -39,7 +57,11 @@ import time
 # H100 SXM peaks used for the roofline bound (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-JOINT_STEPS = 4          # the first is warm-up; the rest are timed
+JOINT_STEPS = 3          # the first is warm-up; the rest are timed
+BUDGET_STEPS = 2
+TRAIN_BUDGET = 262_144
+SERVE_REQUESTS = 3       # the first is warm-up
+SERVE_BATCH = 2
 SEED = 0
 
 
@@ -200,6 +222,143 @@ def kernel_cases(dev, x_main):
     return cases
 
 
+def same_values(a, b) -> bool:
+    """Bit-for-bit equality of two float tensors, NaN equal to NaN."""
+    import torch
+
+    nan = a.isnan()
+    return bool(torch.equal(nan, b.isnan())
+                and torch.equal(a.view(torch.int32).masked_fill(nan, 0),
+                                b.view(torch.int32).masked_fill(nan, 0)))
+
+
+def gather_case(name, table, sidx, reps):
+    """The gather kernel against its plain version (bit for bit) and, where
+    every index is in range, one ``index_select`` on a table rounded
+    beforehand (a yardstick: the port never calls it)."""
+    import torch
+
+    from stable_nerf_tpu_torch.ops.hopper.gather import (sorted_window_gather,
+                                                         sorted_window_gather_plain)
+
+    T, F = table.shape
+    M = sidx.shape[0]
+    out = sorted_window_gather(table, sidx)
+    plain = sorted_window_gather_plain(table, sidx)
+    torch.cuda.synchronize()
+    finite = out.isfinite() & plain.isfinite()
+    max_abs = float(torch.where(finite, (out - plain).abs(), 0.0).max())
+    clamped = sidx.clamp(0, T - 1)
+    distinct = int(torch.unique(clamped).numel())
+    bytes_moved = M * 4 + M * F * 4 + distinct * F * table.element_size()
+    row = {
+        "case": name, "items": M, "table_rows": T, "features": F,
+        "table_dtype": str(table.dtype).replace("torch.", ""),
+        "distinct_rows": distinct, "equal": same_values(out, plain),
+        "max_abs_err": max_abs,
+        "ms": cuda_ms(lambda: sorted_window_gather(table, sidx), reps),
+        "plain_ms": cuda_ms(lambda: sorted_window_gather_plain(table, sidx), reps),
+        "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, M * F / F32_FLOPS) * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+    }
+    if bool((clamped == sidx).all()):
+        rounded = table.to(torch.bfloat16).float()
+        row["library_ms"] = cuda_ms(lambda: rounded.index_select(0, sidx), reps)
+        row["library"] = "index_select on a table rounded to bf16 beforehand"
+    row["ok"] = row["equal"]
+    return row
+
+
+def gather_cases(dev, floor):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    cases = []
+
+    # (a) the floor path's shape: 2^18 samples x 16 levels x 8 corners,
+    # each level's rows sorted, concatenated (globally sorted)
+    table, _, _, idx_lm = floor.make_inputs(2 ** 18, dev, SEED)
+    sidx = floor.sort_levels(idx_lm)[0].reshape(-1)
+    del idx_lm
+    cases.append(gather_case("a_floor_path", table, sidx, reps=10))
+
+    # (e) the same table, unsorted indices
+    Me = 2 ** 22
+    unsorted = torch.randint(0, table.shape[0], (Me,), generator=g, device=dev,
+                             dtype=torch.int32)
+    case_e = gather_case("e_unsorted", table, unsorted, reps=10)
+    del table, sidx, unsorted
+
+    # (b) the three shapes of the reference kernel's tests
+    t8k = torch.randn((8192, 2), generator=g, device=dev)
+    t32k = torch.randn((32768, 2), generator=g, device=dev)
+    rand_sorted = torch.sort(torch.randint(0, 8192, (3000,), generator=g, device=dev,
+                                           dtype=torch.int32))[0]
+    wide = torch.sort((torch.arange(1024, device=dev, dtype=torch.int32) * 31) % 32768)[0]
+    edges = torch.tensor([0, 0, 0, 1, 4095, 4096, 8191, 8191], dtype=torch.int32,
+                         device=dev)
+    cases.append(gather_case("b_rows_8192x3000", t8k, rand_sorted, reps=20))
+    cases.append(gather_case("b_wide_span_32768x1024", t32k, wide, reps=20))
+    cases.append(gather_case("b_duplicates_edges", t8k, edges, reps=20))
+
+    # (c) negative indices and padding >= T, a length that is no multiple
+    # of 1024
+    padded = torch.cat([torch.tensor([-7, -1, -1], dtype=torch.int32, device=dev),
+                        rand_sorted[:2990],
+                        torch.arange(8192, 8200, dtype=torch.int32, device=dev)])
+    cases.append(gather_case("c_negative_and_padding_3001", t8k, padded, reps=20))
+
+    # (d) a bf16 table
+    tb = torch.randn((16 * 4096, 2), generator=g, device=dev).to(torch.bfloat16)
+    sb = torch.sort(torch.randint(0, tb.shape[0], (2 ** 20,), generator=g, device=dev,
+                                  dtype=torch.int32))[0]
+    cases.append(gather_case("d_bf16_table", tb, sb, reps=20))
+    cases.append(case_e)
+
+    # (f) a width other than the hash grid's 2 (the generic kernel)
+    t4 = torch.randn((5000, 4), generator=g, device=dev)
+    s4 = torch.sort(torch.randint(-5, 5010, (100_003,), generator=g, device=dev,
+                                  dtype=torch.int32))[0]
+    cases.append(gather_case("f_width_4", t4, s4, reps=20))
+
+    # (g) NaN, infinities, denormals, ties of the bf16 rounding
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0, -0.0,
+                            1e-40, -1e-40, 1.17549435e-38, 3.4028235e38,
+                            1.00390625, 1.01171875, 65504.0], device=dev)
+    ts = torch.stack([special, special.flip(0)], dim=1).contiguous()
+    sg = torch.arange(ts.shape[0], dtype=torch.int32, device=dev)
+    cases.append(gather_case("g_special_values", ts, sg, reps=5))
+    return cases
+
+
+def load_floor_script():
+    """scripts/bench_torch_fused_render_floor.py as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "bench_torch_fused_render_floor.py")
+    spec = importlib.util.spec_from_file_location("bench_torch_fused_render_floor",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def encode_floor(dev, floor):
+    """The sorted-encode floor path, with the launch counts set to 0 just
+    before it and read just after."""
+    from stable_nerf_tpu_torch.ops.hopper.gather import sorted_window_gather
+    from stable_nerf_tpu_torch.ops.hopper.scatter import hash_scatter_add_per_level
+
+    sorted_window_gather.launches = 0
+    hash_scatter_add_per_level.launches = 0
+    row = floor.measure(2 ** 18, dev, SEED)
+    launches = sorted_window_gather.launches
+    row = {"phase": "encode_floor", **row, "gather_launches": launches}
+    row["ok"] = bool(row["realigned_equal"] and launches > 0)
+    return row
+
+
 def tiny_joint_config():
     """The joint step at dry-run scale (the reference's _tiny_joint_setup)."""
     from stable_nerf_tpu_torch.config import (HashGridConfig, NeRFConfig, SDConfig,
@@ -222,11 +381,30 @@ def tiny_joint_config():
         train=TrainConfig(max_steps_train=32, max_steps_eval=64))
 
 
+def make_batch(cfg, dev, g, n_scenes):
+    """Random images in [-1, 1] and the rays of random poses, ``n_scenes``
+    target/reference pairs."""
+    import torch
+
+    from stable_nerf_tpu_torch.data.rays import get_rays, rand_poses
+
+    enc, img = cfg.latent_hw, cfg.sd.sd.image_size
+    intr = (float(enc), float(enc), enc / 2, enc / 2)
+    rt = get_rays(rand_poses(g, n_scenes, radius=2.0), intr, enc, enc)
+    rr = get_rays(rand_poses(g, n_scenes, radius=2.0), intr, enc, enc)
+    shape = (n_scenes, 3, img, img)
+    return {
+        "target_image": torch.rand(shape, generator=g, device=dev) * 2 - 1,
+        "reference_image": torch.rand(shape, generator=g, device=dev) * 2 - 1,
+        "target_rays_o": rt["rays_o"], "target_rays_d": rt["rays_d"],
+        "reference_rays_o": rr["rays_o"], "reference_rays_d": rr["rays_d"],
+    }
+
+
 def make_setup(cfg, dev, seed):
     """Params, grid (all occupied), scheduler and a batch of one scene."""
     import torch
 
-    from stable_nerf_tpu_torch.data.rays import get_rays, rand_poses
     from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
     from stable_nerf_tpu_torch.models.diffusion.sd_network import (
         init_ip_from_unet, sd_network_init)
@@ -242,17 +420,7 @@ def make_setup(cfg, dev, seed):
     grid = grid._replace(occ=torch.ones_like(grid.occ))
     scheduler = DDIMScheduler.create(cfg.sd.scheduler, device=dev)
     g = torch.Generator(device=dev).manual_seed(seed + 2)
-    enc, img = cfg.latent_hw, cfg.sd.sd.image_size
-    intr = (float(enc), float(enc), enc / 2, enc / 2)
-    rt = get_rays(rand_poses(g, 1, radius=2.0), intr, enc, enc)
-    rr = get_rays(rand_poses(g, 1, radius=2.0), intr, enc, enc)
-    batch = {
-        "target_image": torch.rand((1, 3, img, img), generator=g, device=dev) * 2 - 1,
-        "reference_image": torch.rand((1, 3, img, img), generator=g, device=dev) * 2 - 1,
-        "target_rays_o": rt["rays_o"], "target_rays_d": rt["rays_d"],
-        "reference_rays_o": rr["rays_o"], "reference_rays_d": rr["rays_d"],
-    }
-    return params, mask, grid, scheduler, batch
+    return params, mask, grid, scheduler, make_batch(cfg, dev, g, 1)
 
 
 def parity_small(dev):
@@ -297,11 +465,57 @@ def parity_small(dev):
     return row
 
 
+def serve_parity(dev):
+    """The tiny inference step (5 DDIM steps, float32, a sparse occupancy
+    grid so compaction sees a real mask) on ``dev`` against the CPU, same
+    params and draws.  Tolerance: every result key within 1e-3 of its
+    largest reference entry (SSIM, a mean over [-1, 1] that is near 0
+    here, within 1e-3 absolutely); float32 sums in other orders, through
+    five U-Net passes and the VAE decode."""
+    import torch
+
+    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+    from stable_nerf_tpu_torch.models.nerf.grid import OccupancyGridState
+    from stable_nerf_tpu_torch.training.inference import make_inference_step
+    from stable_nerf_tpu_torch.utils.tree import tree_map
+
+    cfg = tiny_joint_config()
+    cpu = torch.device("cpu")
+    params, _, grid, _, _ = make_setup(cfg, cpu, SEED)
+    g = torch.Generator().manual_seed(SEED + 7)
+    batch = make_batch(cfg, cpu, g, SERVE_BATCH)
+    # a table wide enough for the render to differ from the background
+    params["nerf"]["hash"]["table"].mul_(1e4)
+    grid = grid._replace(occ=torch.rand(grid.occ.shape, generator=g) < 0.4)
+    enc = cfg.latent_hw
+    draws = {"vae_eps": torch.randn((SERVE_BATCH, 4, enc, enc), generator=g),
+             "init_latents": torch.randn((SERVE_BATCH, 4, enc, enc), generator=g)}
+    results = {}
+    for d in (cpu, dev):
+        step = make_inference_step(cfg, DDIMScheduler.create(cfg.sd.scheduler, device=d),
+                                   5, compute_dtype=torch.float32, guidance_scale=3.0,
+                                   capture_attn_maps=True, device=d)
+        out = step(tree_map(lambda x: x.to(d), params),
+                   OccupancyGridState(*(t.to(d) for t in grid)),
+                   {k: v.to(d) for k, v in batch.items()},
+                   draws={k: v.to(d) for k, v in draws.items()})
+        out["ip_attn_maps"] = torch.cat([m.reshape(-1) for m in out["ip_attn_maps"]])
+        results[d.type] = {k: v.float().cpu() for k, v in out.items()}
+    errs = {k: float((results[dev.type][k] - ref).abs().max()
+                     / (1.0 if k == "ssim" else ref.abs().max().clamp_min(1e-30)))
+            for k, ref in results["cpu"].items()}
+    row = {"phase": "serve_parity", "ddim_steps": 5, "guidance_scale": 3.0,
+           "rel_err_by_key": errs, "tolerance": 1e-3}
+    row["ok"] = bool(all(e <= 1e-3 for e in errs.values()))
+    return row
+
+
 def joint_full(dev, cfg, setup, steps):
     """Full-width train steps; returns the phase row and the step (launch
     count read right after the steps)."""
     import torch
 
+    from stable_nerf_tpu_torch.ops.hopper.gather import sorted_window_gather
     from stable_nerf_tpu_torch.ops.hopper.scatter import hash_scatter_add_per_level
     from stable_nerf_tpu_torch.training.joint import make_optimizer, make_train_step
 
@@ -314,6 +528,7 @@ def joint_full(dev, cfg, setup, steps):
 
     losses, times = [], []
     hash_scatter_add_per_level.launches = 0
+    sorted_window_gather.launches = 0
     for _ in range(steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -335,12 +550,120 @@ def joint_full(dev, cfg, setup, steps):
         "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
     }
     row["ok"] = bool(finite and launches == chunks * steps)
-    return row, (step, params, grid, batch, g)
+    return row, (step, params, grid, batch, g), opt
 
 
-def profile_step(state, out_dir):
-    """One more train step under torch.profiler: device time by kernel name,
-    the busy share of the step's wall time, and the full table in out_dir."""
+def joint_budget(dev, cfg, setup, opt, steps):
+    """Train steps with a binding sample budget: the compaction branch
+    under gradient, the scatter kernel on compacted positions."""
+    import torch
+
+    from stable_nerf_tpu_torch.ops.hopper.scatter import hash_scatter_add_per_level
+    from stable_nerf_tpu_torch.training.joint import make_train_step
+    from stable_nerf_tpu_torch.utils.tree import tree_leaves
+
+    params, _, grid, sched, batch = setup
+    step = make_train_step(cfg, sched, opt, sample_budget=TRAIN_BUDGET, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = hash_scatter_add_per_level.launches
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(params, grid, batch, generator=g)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append({k: float(v) for k, v in m.items()})
+    launches = hash_scatter_add_per_level.launches - before
+    chunks = TRAIN_BUDGET // 2 ** 17
+    # what stays on the card between steps: params, optimizer moments,
+    # grid and batch
+    held = (tree_leaves(params) + list(grid) + list(batch.values())
+            + [v for st in opt.state.values() for v in st.values()
+               if isinstance(v, torch.Tensor)])
+    state_bytes = sum(x.numel() * x.element_size() for x in held)
+    row = {"phase": "joint_train_budget", "steps": steps,
+           "sample_budget": TRAIN_BUDGET, "scatter_launches": launches,
+           "expected_launches": chunks * steps, "step_ms": times, "losses": losses,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "state_bytes": state_bytes}
+    row["ok"] = bool(all(math.isfinite(v) for l in losses for v in l.values())
+                     and launches == chunks * steps)
+    return row
+
+
+def serve(dev, cfg, setup):
+    """Full-width inference requests, batches of SERVE_BATCH scenes: the
+    eval render at 512 march steps and 64 samples a ray, 50 DDIM steps,
+    f32 VAE decode, metrics.  Each stage's ms is the host clock between
+    synchronizes at the stage's end."""
+    import torch
+
+    from stable_nerf_tpu_torch.training.inference import make_inference_step
+    from stable_nerf_tpu_torch.training.joint import eval_sample_budget
+
+    params, _, grid, sched, _ = setup
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    marks = []
+
+    def hook(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    def request(step, batch):
+        marks.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(params, grid, batch, generator=g)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+        stages, prev = {}, t0
+        for name, t in marks:
+            stages[name] = (t - prev) * 1e3
+            prev = t
+        return out, total, stages
+
+    n_steps = cfg.train.num_inference_steps
+    step = make_inference_step(cfg, sched, n_steps, device=dev, stage_hook=hook)
+    torch.cuda.reset_peak_memory_stats()
+    requests, ok = [], True
+    img = cfg.sd.sd.image_size
+    for _ in range(SERVE_REQUESTS):
+        out, total, stages = request(step, make_batch(cfg, dev, g, SERVE_BATCH))
+        d = out["denoised_image"]
+        metrics = {k: out[k].float().reshape(-1).tolist()
+                   for k in ("psnr", "ssim", "l2_loss", "latent_psnr")}
+        ok = ok and (tuple(d.shape) == (SERVE_BATCH, 3, img, img)
+                     and bool(d.isfinite().all()) and float(d.min()) >= 0.0
+                     and float(d.max()) <= 1.0
+                     and all(math.isfinite(v) for m in metrics.values() for v in m))
+        requests.append({"ms": total, "stages_ms": stages, "metrics": metrics})
+    peak = torch.cuda.max_memory_allocated(dev)
+    guided = make_inference_step(cfg, sched, n_steps, device=dev, guidance_scale=3.0,
+                                 stage_hook=hook)
+    _, g_total, g_stages = request(guided, make_batch(cfg, dev, g, SERVE_BATCH))
+    n_rays = SERVE_BATCH * cfg.latent_hw ** 2
+    timed = requests[1:]
+    row = {"phase": "serve", "scenes_per_request": SERVE_BATCH, "ddim_steps": n_steps,
+           "eval_march_steps": cfg.train.max_steps_eval,
+           "lattice": n_rays * cfg.train.max_steps_eval,
+           "sample_budget": eval_sample_budget(n_rays, cfg.train),
+           "requests": requests,
+           "steady_request_ms": statistics.mean(r["ms"] for r in timed),
+           "steady_ms_per_view": statistics.mean(r["ms"] for r in timed) / SERVE_BATCH,
+           "steady_stages_ms": {k: statistics.mean(r["stages_ms"][k] for r in timed)
+                                for k in timed[0]["stages_ms"]},
+           "guidance_3_request_ms": g_total, "guidance_3_stages_ms": g_stages,
+           "max_memory_allocated": peak, "ok": bool(ok)}
+    return row, (step, params, grid, make_batch(cfg, dev, g, SERVE_BATCH), g)
+
+
+def profile_step(state, out_dir, what):
+    """One more call of a step (``what``: "joint_step" or "serve_request")
+    under torch.profiler: device time by kernel name, the busy share of the
+    call's wall time, and the full table in out_dir."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -372,20 +695,23 @@ def profile_step(state, out_dir):
     table = sorted(([n, t / 1e3, c] for n, (t, c) in by_name.items()),
                    key=lambda r: -r[1])
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "joint_step_kernels.json"), "w") as f:
+    path = os.path.join(out_dir, what + "_kernels.json")
+    with open(path, "w") as f:
         json.dump({"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
                    "launches": len(spans), "kernels_ms_count": table}, f, indent=1)
-    return {"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
+    return {"phase": "profile", "of": what, "wall_ms": wall_ms,
+            "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / 1e3 / wall_ms,
             "kernel_ms_sum": sum(r[1] for r in table), "launches": len(spans),
             "top": [[n[:90], ms, c] for n, ms, c in table[:12]],
-            "table": os.path.join(out_dir, "joint_step_kernels.json")}
+            "table": path}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="profile one more train step and write the table to DIR")
+                    help="profile one more train step and one more serving request and "
+                         "write the tables to DIR")
     args = ap.parse_args()
     import torch
 
@@ -428,14 +754,25 @@ def main() -> int:
     cases = kernel_cases(dev, x_main)
     emit({"phase": "kernel_cases", "cases": cases})
     del x_main
-    parity = parity_small(dev)
-    emit(parity)
-    joint, state = joint_full(dev, cfg, setup, JOINT_STEPS)
+    floor = load_floor_script()
+    gathers = gather_cases(dev, floor)
+    emit({"phase": "gather_cases", "cases": gathers})
+    phases = [encode_floor(dev, floor), parity_small(dev), serve_parity(dev)]
+    for row in phases:
+        emit(row)
+    floor_row = phases[0]
+    joint, state, opt = joint_full(dev, cfg, setup, JOINT_STEPS)
     emit(joint)
+    phases += [joint, joint_budget(dev, cfg, setup, opt, BUDGET_STEPS)]
+    emit(phases[-1])
+    served, serve_state = serve(dev, cfg, setup)
+    emit(served)
+    phases.append(served)
     if args.profile:
-        emit(profile_step(state, args.profile))
+        emit(profile_step(state, args.profile, "joint_step"))
+        emit(profile_step(serve_state, args.profile, "serve_request"))
 
-    a = cases[0]
+    a, ga = cases[0], gathers[0]
     emit({"kernels": [{
         "name": "hash_scatter_add", "route": "cuda",
         "source": "stable_nerf_tpu_torch/csrc/hash_scatter.cu",
@@ -445,12 +782,20 @@ def main() -> int:
         "max_abs_err": a["kernel_vs_plain_max_abs"],
         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+    }, {
+        "name": "sorted_window_gather", "route": "cuda",
+        "source": "stable_nerf_tpu_torch/csrc/sorted_gather.cu",
+        "replaces": "stable_nerf_tpu/ops/pallas/gather.py:114",
+        "launches": floor_row["gather_launches"],
+        "max_abs_err": ga["max_abs_err"],
+        "ms": ga["ms"], "plain_ms": ga["plain_ms"], "bound_ms": ga["bound_ms"],
+        "bound_by": ga["bound_by"], "library_ms": ga["library_ms"],
     }]})
     print(smi, flush=True)
-    failed = [c["case"] for c in cases if not c["ok"]]
-    if failed or not parity["ok"] or not joint["ok"]:
-        print(f"chip_smoke: failed: cases {failed}, parity ok {parity['ok']}, "
-              f"joint ok {joint['ok']}", file=sys.stderr)
+    failed = ([c["case"] for c in cases + gathers if not c["ok"]]
+              + [row["phase"] for row in phases if not row["ok"]])
+    if failed:
+        print(f"chip_smoke: failed: {failed}", file=sys.stderr)
         return 1
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

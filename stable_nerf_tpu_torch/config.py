@@ -1,8 +1,8 @@
-"""Configuration dataclasses of the joint train step.
+"""Configuration dataclasses of the joint train and serving steps.
 
 The port's own copies of the reference package's configuration classes,
-with the same names and defaults, holding the fields the ported joint
-step reads.  ``convert.config_from_jax`` converts a reference
+with the same names and defaults, holding the fields the ported steps
+read.  ``convert.config_from_jax`` converts a reference
 configuration field by field and refuses one that sets a field the port
 does not have.  Plain dataclasses: nothing here imports torch.
 """
@@ -137,8 +137,13 @@ class TrainConfig:
     frozen_dtype: Optional[str] = None
     trainable_scope: str = "reference"   # reference | sd
     vae_encode: str = "sample"           # sample | mode
+    # DDIM steps of the inference denoise loop
+    num_inference_steps: int = 50
     # eval-render sample budget (None: sample_budget_eval_per_ray per ray;
-    # a per-ray value of 0 is the dense lattice, the only one that runs
-    # until compaction is ported)
+    # a per-ray value of 0 is the dense [N, max_steps_eval] lattice)
     sample_budget_eval: Optional[int] = None
     sample_budget_eval_per_ray: int = 64
+    # occupancy-driven eval budget: when the caller supplies the grid's
+    # occupied fraction, the budget is suggest_sample_budget(occ, n_rays,
+    # max_steps_eval), capped at the static per-ray default
+    sample_budget_eval_auto: bool = True

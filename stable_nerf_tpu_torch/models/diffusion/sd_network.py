@@ -19,7 +19,8 @@ from ...utils.tree import tree_map
 from .ip_adapter import (downsampling_layers_apply, downsampling_layers_init,
                          image_proj_apply, image_proj_init)
 from .unet import UNetConfig, sdxl_unet_config, unet_apply, unet_init
-from .vae import VAEConfig, vae_encode_mode, vae_encode_sample, vae_init
+from .vae import (VAEConfig, vae_decode, vae_encode_mode, vae_encode_sample,
+                  vae_init)
 
 
 @dataclass(frozen=True)
@@ -120,6 +121,11 @@ def encode_images_mode(params: Dict, images, cfg: SDNetworkConfig = SDNetworkCon
     return vae_encode_mode(params["vae"], images, cfg.vae)
 
 
+def decode_latents(params: Dict, latents, cfg: SDNetworkConfig = SDNetworkConfig()):
+    """Scaled latents → images."""
+    return vae_decode(params["vae"], latents, cfg.vae)
+
+
 def embed_conditions(params: Dict, image_embeds, cfg: SDNetworkConfig = SDNetworkConfig(),
                      views_per_sample: int = 2):
     """[B·views, cond_channels, latent, latent] → [B, views·tokens, D]."""
@@ -133,14 +139,22 @@ def embed_conditions(params: Dict, image_embeds, cfg: SDNetworkConfig = SDNetwor
 
 def sd_forward(params: Dict, noisy_latents, timesteps, image_embeds,
                cfg: SDNetworkConfig = SDNetworkConfig(), *,
-               compute_dtype=torch.float32):
+               compute_dtype=torch.float32, capture_ip_attn_maps: bool = False):
     """Noise prediction conditioned only on the ip tokens (reference
-    SDNetwork.forward, network.py:191-212)."""
+    SDNetwork.forward, network.py:191-212).
+
+    capture_ip_attn_maps: also return the ip-stream attention maps; the
+      return becomes ``(noise_pred, [maps...])``."""
     ip_tokens = embed_conditions(params, image_embeds, cfg)
     B = noisy_latents.shape[0]
     te = params["add_text_embeds"]
-    return unet_apply(
+    out = unet_apply(
         params["unet"], noisy_latents, timesteps, ip_tokens,
         added_text_embeds=te.expand(B, te.shape[-1]),
         added_time_ids=params["add_time_ids"].expand(B, 6),
-        cfg=cfg.unet, compute_dtype=compute_dtype)
+        cfg=cfg.unet, compute_dtype=compute_dtype,
+        capture_ip_attn_maps=capture_ip_attn_maps)
+    if capture_ip_attn_maps:
+        eps, aux = out
+        return eps, aux["ip_attn_maps"]
+    return out

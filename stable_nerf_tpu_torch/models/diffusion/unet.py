@@ -184,9 +184,12 @@ def _resnet(p, x, temb, groups):
     return x + h
 
 
-def _attention(p, x, context, head_dim, ip_tokens: int, ip_scale: float):
+def _attention(p, x, context, head_dim, ip_tokens: int, ip_scale: float,
+               attn_maps=None):
     """Self-attention when ``context`` is None; else cross-attention, split
-    into text and ip streams when the layer has ip weights."""
+    into text and ip streams when the layer has ip weights.  When
+    ``attn_maps`` is a list, the ip stream's float32 attention
+    probabilities softmax(s·q·k_ipᵀ) [B, H, S, ip_tokens] are appended."""
     n_heads = p["to_q"]["kernel"].shape[1] // head_dim
     q = split_heads(linear(p["to_q"], x), n_heads)
 
@@ -200,12 +203,16 @@ def _attention(p, x, context, head_dim, ip_tokens: int, ip_scale: float):
         end = context.shape[1] - ip_tokens
         out = attend(p["to_k"], p["to_v"], context[:, :end])
         out = out + ip_scale * attend(p["to_k_ip"], p["to_v_ip"], context[:, end:])
+        if attn_maps is not None:
+            k_ip = split_heads(linear(p["to_k_ip"], context[:, end:]), n_heads)
+            logits = (q * q.shape[-1] ** -0.5).float() @ k_ip.float().transpose(-1, -2)
+            attn_maps.append(torch.softmax(logits, dim=-1))
     else:
         out = attend(p["to_k"], p["to_v"], context)
     return linear(p["to_out"], out)
 
 
-def _transformer(p, x, context, cfg: UNetConfig, groups):
+def _transformer(p, x, context, cfg: UNetConfig, groups, attn_maps=None):
     n, c, h, w = x.shape
     y = group_norm(p["norm"], x, groups, eps=1e-6).reshape(n, c, h * w).transpose(1, 2)
     y = linear(p["proj_in"], y)
@@ -213,7 +220,7 @@ def _transformer(p, x, context, cfg: UNetConfig, groups):
         y = y + _attention(blk["attn1"], layer_norm(blk["norm1"], y), None,
                            cfg.head_dim, 0, 0.0)
         y = y + _attention(blk["attn2"], layer_norm(blk["norm2"], y), context,
-                           cfg.head_dim, cfg.ip_num_tokens, cfg.ip_scale)
+                           cfg.head_dim, cfg.ip_num_tokens, cfg.ip_scale, attn_maps)
         z = linear(blk["ff_geglu"], layer_norm(blk["norm3"], y))
         val, gate = z.chunk(2, dim=-1)          # diffusers GEGLU order
         y = y + linear(blk["ff_out"], val * F.gelu(gate))   # exact erf GELU
@@ -223,10 +230,14 @@ def _transformer(p, x, context, cfg: UNetConfig, groups):
 
 def unet_apply(params: Dict, sample: torch.Tensor, timesteps, encoder_hidden_states,
                *, added_text_embeds, added_time_ids, cfg: UNetConfig = UNetConfig(),
-               compute_dtype=torch.float32) -> torch.Tensor:
+               compute_dtype=torch.float32, capture_ip_attn_maps: bool = False):
     """Predict noise [B, 4, h, w] (float32) from noisy latents, timesteps
     (scalar or [B]), conditioning tokens [B, S, cross_attention_dim], the
-    SDXL pooled text embeds [B, pooled] and time ids [B, 6]."""
+    SDXL pooled text embeds [B, pooled] and time ids [B, 6].
+
+    capture_ip_attn_maps: return ``(eps, {"ip_attn_maps": [...]})`` with
+      every ip-stream cross-attention probability map [B, H, S, ip_tokens]
+      in float32, outermost layer first."""
     gr = cfg.norm_groups
     B = sample.shape[0]
     x = sample.to(compute_dtype)
@@ -244,6 +255,7 @@ def unet_apply(params: Dict, sample: torch.Tensor, timesteps, encoder_hidden_sta
     ae = params["add_embedding"]
     temb = temb + linear(ae["linear_2"], silu(linear(ae["linear_1"], add)))
 
+    attn_maps = [] if capture_ip_attn_maps else None
     x = conv2d(params["conv_in"], x)
     skips = [x]
     for block in params["down_blocks"]:
@@ -251,7 +263,7 @@ def unet_apply(params: Dict, sample: torch.Tensor, timesteps, encoder_hidden_sta
         for j, res in enumerate(block["resnets"]):
             x = _resnet(res, x, temb, gr)
             if attns:
-                x = _transformer(attns[j], x, context, cfg, gr)
+                x = _transformer(attns[j], x, context, cfg, gr, attn_maps)
             skips.append(x)
         if "downsample" in block:
             x = conv2d(block["downsample"], x, stride=2, padding=1)
@@ -259,16 +271,19 @@ def unet_apply(params: Dict, sample: torch.Tensor, timesteps, encoder_hidden_sta
     mid = params["mid_block"]
     x = _resnet(mid["resnets"][0], x, temb, gr)
     if mid["attentions"]:
-        x = _transformer(mid["attentions"][0], x, context, cfg, gr)
+        x = _transformer(mid["attentions"][0], x, context, cfg, gr, attn_maps)
     x = _resnet(mid["resnets"][1], x, temb, gr)
     for block in params["up_blocks"]:
         attns = block["attentions"]
         for j, res in enumerate(block["resnets"]):
             x = _resnet(res, torch.cat([x, skips.pop()], dim=1), temb, gr)
             if attns:
-                x = _transformer(attns[j], x, context, cfg, gr)
+                x = _transformer(attns[j], x, context, cfg, gr, attn_maps)
         if "upsample" in block:
             x = conv2d(block["upsample"], F.interpolate(x, scale_factor=2,
                                                         mode="nearest"))
     x = silu(group_norm(params["conv_norm_out"], x, gr, eps=1e-5))
-    return conv2d(params["conv_out"], x).float()
+    eps = conv2d(params["conv_out"], x).float()
+    if capture_ip_attn_maps:
+        return eps, {"ip_attn_maps": attn_maps}
+    return eps

@@ -1,10 +1,8 @@
-"""SDXL AutoencoderKL, encoder side (counterpart of
+"""SDXL AutoencoderKL (counterpart of
 stable_nerf_tpu/models/diffusion/vae.py).
 
-``vae_init`` builds the whole tree, decoder included, so a converted
-checkpoint keeps every leaf; ``vae_decode`` is not ported yet.  The encode
-computes in the images' dtype (float32 in the joint step) whatever the
-storage dtype of the weights.
+Encode and decode compute in their input's dtype (float32 in the joint
+and inference steps) whatever the storage dtype of the weights.
 """
 
 from __future__ import annotations
@@ -167,3 +165,19 @@ def vae_encode_mode(params: Dict, x: torch.Tensor, cfg: VAEConfig = VAEConfig())
     """Deterministic (mode) encode × scaling factor."""
     mean, _ = vae_encode_moments(params, x, cfg)
     return mean * cfg.scaling_factor
+
+
+def vae_decode(params: Dict, z: torch.Tensor, cfg: VAEConfig = VAEConfig()) -> torch.Tensor:
+    """Scaled latents [N, 4, h, w] → images [N, 3, 8h, 8w]."""
+    gr = cfg.norm_groups
+    d = params["decoder"]
+    h = conv2d(params["post_quant_conv"], z / cfg.scaling_factor, padding=0)
+    h = conv2d(d["conv_in"], h)
+    h = _mid_apply(d["mid"], h, gr)
+    for block in d["up_blocks"]:
+        for r in block["resnets"]:
+            h = _resnet_apply(r, h, gr)
+        if "upsample" in block:
+            h = conv2d(block["upsample"], F.interpolate(h, scale_factor=2,
+                                                        mode="nearest"))
+    return conv2d(d["conv_out"], silu(group_norm(d["norm_out"], h, gr)))

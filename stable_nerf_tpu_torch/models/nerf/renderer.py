@@ -1,5 +1,7 @@
 """Volume renderer: march → NeRF eval → composite → background blend
-(counterpart of stable_nerf_tpu/models/nerf/renderer.py, dense path).
+(counterpart of stable_nerf_tpu/models/nerf/renderer.py).  One path serves
+training and eval: eval is the same lattice with ``max_steps=512``, no
+perturbation and, by default, a sample budget.
 
   * image = composited + (1 − weights_sum)·bg_color
   * depth = clamp(depth − near, 0) / (far − near), 0 for missed rays
@@ -12,6 +14,7 @@ from typing import Dict, Optional
 import torch
 
 from ...config import NeRFConfig
+from ...ops.compaction import compact_plan, gather_compact, scatter_back
 from ...ops.composite import composite_rays
 from ...ops.marching import march_rays_lattice
 from ...ops.ray_ops import near_far_from_aabb
@@ -43,8 +46,12 @@ def render(params: Dict, grid_state: OccupancyGridState, rays_o, rays_d,
     perturb: optional [N] uniforms in [0, 1) jittering each ray's t0 (the
       reference's perturb_key draw); training only, and it turns on the
       stochastic hash encode when the config asks for it.
-    sample_budget: compaction is not ported yet; only a budget that does
-      not bind (None, or >= the lattice size) runs.
+    sample_budget: if set and below the lattice size N·K, the network is
+      evaluated on at most this many valid samples, packed step-major into
+      a static buffer (ops/compaction.py); valid samples over the budget
+      are dropped.  Padded slots carry position 0 and direction 0, their
+      outputs are dropped by ``scatter_back`` and they get a zero
+      cotangent.  None evaluates the dense lattice.
 
     Returns {'image': [..., C], 'depth': [...], 'weights_sum': [...]}.
     """
@@ -53,10 +60,6 @@ def render(params: Dict, grid_state: OccupancyGridState, rays_o, rays_d,
     o = rays_o.reshape(-1, 3).float()
     d = rays_d.reshape(-1, 3).float()
     N = o.shape[0]
-    if sample_budget is not None and sample_budget < N * (n_samples or max_steps):
-        raise NotImplementedError(
-            "sample_budget compaction (ops/compaction.py) is not ported yet; "
-            "see ROADMAP.md, port queue item 1")
     b = cfg.bound
     aabb = torch.tensor([-b, -b, -b, b, b, b], dtype=torch.float32, device=o.device)
     nears, fars = near_far_from_aabb(o, d, aabb, cfg.min_near)
@@ -66,9 +69,22 @@ def render(params: Dict, grid_state: OccupancyGridState, rays_o, rays_d,
         noise=perturb)
     K = ts.shape[1]
     M = N * K
-    dirs = d[:, None, :].expand(N, K, 3)
-    sig, rgb = _eval_samples(params, pos.reshape(M, 3), dirs.reshape(M, 3), cfg,
-                             compute_dtype, eval_chunk, stochastic)
+    if sample_budget is not None and sample_budget < M:
+        plan = compact_plan(valid, sample_budget)
+        pos_c = gather_compact(plan, pos)
+        # directions are constant along a ray: gather [budget] rows of the
+        # [N, 3] ray directions (src // K is the ray)
+        ray_of = torch.div(plan.src_idx, K, rounding_mode="floor").clamp(max=N - 1)
+        dirs_c = d[ray_of.long()] * plan.slot_used[:, None].to(d.dtype)
+        sig, rgb = _eval_samples(params, pos_c, dirs_c, cfg, compute_dtype,
+                                 eval_chunk, stochastic)
+        sig = scatter_back(plan, sig, M)
+        rgb = scatter_back(plan, rgb, M)
+        valid = plan.new_valid
+    else:
+        dirs = d[:, None, :].expand(N, K, 3)
+        sig, rgb = _eval_samples(params, pos.reshape(M, 3), dirs.reshape(M, 3), cfg,
+                                 compute_dtype, eval_chunk, stochastic)
     sigmas = sig.reshape(N, K) * cfg.density_scale
     rgbs = rgb.reshape(N, K, cfg.channel_dim)
     weights_sum, depth, image = composite_rays(sigmas, rgbs, dt, ts, t0, valid,

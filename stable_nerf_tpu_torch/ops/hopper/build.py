@@ -29,6 +29,11 @@ _SIGNATURES = {
                               ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
     },
+    "sorted_gather": {
+        "sorted_window_gather": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

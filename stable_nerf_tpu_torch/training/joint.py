@@ -1,4 +1,4 @@
-"""The joint Stable-NeRF train step (counterpart of
+"""The joint Stable-NeRF train and validation steps (counterpart of
 stable_nerf_tpu/training/joint.py; reference train.py:23-107):
 
   1. frozen-VAE encode of the (target, reference) images, no grad;
@@ -18,6 +18,7 @@ injected, so a test can feed both packages the same numbers.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
@@ -30,9 +31,17 @@ from ..models.diffusion.sd_network import (SDNetworkConfig, encode_images,
 from ..models.diffusion.sd_network import trainable_mask as sd_trainable_mask
 from ..models.nerf.grid import OccupancyGridState
 from ..models.nerf.renderer import render
+from ..ops.compaction import suggest_sample_budget
 from ..utils.device import resolve_device
 from ..utils.losses import l1_loss, mse_loss
 from ..utils.tree import tree_leaves, tree_map
+
+
+# Memory model of the full-width train step on an NVIDIA H100 80GB HBM3,
+# solved from two measured peaks of chip_smoke.py (dense 2,097,152 samples
+# and a 262,144-sample budget; PERF.md has both points)
+BYTES_PER_SAMPLE = 1953
+FIXED_TEMP_FRAC = 0.40
 
 
 @dataclass(frozen=True)
@@ -54,6 +63,56 @@ def eval_sample_budget(n_rays: int, cfg: TrainConfig) -> Optional[int]:
     if cfg.sample_budget_eval_per_ray <= 0:
         return None
     return min(n_rays * cfg.sample_budget_eval_per_ray, n_rays * cfg.max_steps_eval)
+
+
+def eval_budget_for_occupancy(occ_fraction: Optional[float], n_rays: int,
+                              cfg: TrainConfig) -> Optional[int]:
+    """Occupancy-driven eval budget: ``suggest_sample_budget`` of the grid's
+    measured occupied fraction, capped by the static budget.  Falls back to
+    the static budget when auto is off, an explicit override is set, no
+    measurement is given, or the estimate reaches the dense lattice."""
+    static = eval_sample_budget(n_rays, cfg)
+    if (occ_fraction is None or not cfg.sample_budget_eval_auto
+            or cfg.sample_budget_eval is not None):
+        return static
+    budget = suggest_sample_budget(occ_fraction, n_rays, cfg.max_steps_eval)
+    if budget is None:
+        return static
+    return budget if static is None else min(budget, static)
+
+
+def device_hbm_limit(device) -> Optional[int]:
+    """Total device memory of a CUDA ``device`` in bytes; None for any
+    other device (callers then leave the budget dense)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(dev).total_memory
+
+
+def derive_train_sample_budget(n_rays: int, max_steps: int, state_bytes: int,
+                               hbm_limit_bytes: int, *,
+                               bytes_per_sample: int = BYTES_PER_SAMPLE,
+                               fixed_temp_frac: float = FIXED_TEMP_FRAC,
+                               reserve_bytes: int = 2 ** 28,
+                               min_budget: int = 2 ** 16) -> Optional[int]:
+    """Memory-envelope default for the train-side sample budget: size the
+    NeRF march's compaction budget so the whole step fits the device.
+
+        step memory ≈ state + fixed_temp_frac·state + bytes_per_sample·budget
+
+    where ``state`` is params + optimizer + grid + batch and the second
+    term is the budget-independent U-Net/VAE activations.  Returns None
+    (dense lattice: exact, preferred) when dense fits, else the largest
+    power of two that fits, floored at ``min_budget``."""
+    dense = n_rays * max_steps
+    fixed = fixed_temp_frac * state_bytes
+    avail = hbm_limit_bytes - state_bytes - fixed - reserve_bytes
+    if avail >= dense * bytes_per_sample:
+        return None
+    max_samples = max(avail / bytes_per_sample, 1.0)
+    budget = max(min_budget, 1 << int(math.floor(math.log2(max_samples))))
+    return None if budget >= dense else budget
 
 
 def joint_trainable_mask(params: Dict, scope: str = "reference") -> Dict:
@@ -194,6 +253,13 @@ def make_optimizer(cfg: TrainConfig, params: Dict, mask: Dict) -> torch.optim.Ad
                              eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
 
 
+def check_batch_device(batch: Dict, dev: torch.device) -> None:
+    """A step built for one device refuses a batch on another."""
+    if batch["target_image"].device.type != dev.type:
+        raise ValueError(f"batch on {batch['target_image'].device}, step "
+                         f"built for {dev}")
+
+
 def make_train_step(cfg: JointConfig, scheduler: DDIMScheduler,
                     optimizer: torch.optim.Optimizer, *,
                     sample_budget: Optional[int] = None,
@@ -212,9 +278,7 @@ def make_train_step(cfg: JointConfig, scheduler: DDIMScheduler,
     calls = [0]
 
     def step(params, grid_state, batch, generator=None, draws=None):
-        if batch["target_image"].device.type != dev.type:
-            raise ValueError(f"batch on {batch['target_image'].device}, step "
-                             f"built for {dev}")
+        check_batch_device(batch, dev)
         sd_loss, nerf_loss, _ = forward_iteration(
             params, grid_state, batch, cfg, scheduler, train=True,
             compute_dtype=compute_dtype, sample_budget=sample_budget,
@@ -232,5 +296,30 @@ def make_train_step(cfg: JointConfig, scheduler: DDIMScheduler,
             optimizer.zero_grad(set_to_none=True)
         return {"loss": total.detach(), "sd_loss": sd_loss.detach(),
                 "nerf_loss": nerf_loss.detach()}
+
+    return step
+
+
+def make_eval_step(cfg: JointConfig, scheduler: DDIMScheduler,
+                   sample_budget: Optional[int] = None, *,
+                   compute_dtype=torch.bfloat16,
+                   device: Optional[torch.device] = None):
+    """Validation forward, no grad.
+
+    ``sample_budget``: explicit eval render budget (e.g. the one from
+    :func:`eval_budget_for_occupancy`); None → the static eval default.
+    Returns ``step(params, grid_state, batch, generator=None, draws=None)``
+    → {"loss", "sd_loss", "nerf_loss"}.  Runs on ``device`` (default cuda)."""
+    dev = resolve_device(device)
+
+    def step(params, grid_state, batch, generator=None, draws=None):
+        check_batch_device(batch, dev)
+        with torch.no_grad():
+            sd_loss, nerf_loss, _ = forward_iteration(
+                params, grid_state, batch, cfg, scheduler, train=False,
+                compute_dtype=compute_dtype, sample_budget=sample_budget,
+                generator=generator, draws=draws)
+        return {"loss": sd_loss + nerf_loss, "sd_loss": sd_loss,
+                "nerf_loss": nerf_loss}
 
     return step

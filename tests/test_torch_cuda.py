@@ -9,7 +9,10 @@ only PyTorch:
 Tolerance: the scatter kernel adds with f32 atomics, whose order changes
 from run to run, so each row's sum is held to 1e-5 of the row's sum of
 |updates| against the plain version's index_add_; the encode's table
-gradient (~10 updates a row) to 1e-5 relative and absolute.
+gradient (~10 updates a row) to 1e-5 relative and absolute.  The gather
+kernel only rounds and moves values: bit for bit.  The tiny inference
+step on the card against the CPU: 1e-3 of each key's scale (float32 sums
+in other orders through three U-Net passes and the VAE decode).
 """
 
 import pytest
@@ -17,6 +20,8 @@ import torch
 
 from stable_nerf_tpu_torch.config import HashGridConfig
 from stable_nerf_tpu_torch.ops import encoding
+from stable_nerf_tpu_torch.ops.hopper.gather import (sorted_window_gather,
+                                                     sorted_window_gather_plain)
 from stable_nerf_tpu_torch.ops.hopper.scatter import (hash_scatter_add_per_level,
                                                       hash_scatter_add_plain)
 
@@ -80,3 +85,133 @@ def test_hash_encode_table_grad_through_kernel(cuda, mode, sections):
         assert launched == (sections if dev == "cuda" else 0)
         grads[dev] = t.grad.cpu()
     torch.testing.assert_close(grads["cuda"], grads["cpu"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("T,F,M,dtype,is_sorted", [
+    (8192, 2, 3000, torch.float32, True),       # the reference tests' shape
+    (32768, 2, 1024, torch.float32, True),
+    (16 * 4096, 2, 100_003, torch.bfloat16, True),
+    (8192, 2, 50_000, torch.float32, False),    # unsorted: same rows
+    (5000, 1, 4097, torch.float32, True),       # T no multiple of 4096, F != 2
+    (5000, 4, 4097, torch.bfloat16, True),
+    (4096, 8, 999, torch.float16, True),        # cast to bf16 by the wrapper
+])
+def test_gather_kernel_matches_plain(cuda, T, F, M, dtype, is_sorted):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    table = torch.randn((T, F), generator=g, device=cuda).to(dtype)
+    idx = torch.randint(-3, T + 3, (M,), generator=g, device=cuda, dtype=torch.int32)
+    if is_sorted:
+        idx = torch.sort(idx)[0]
+    before = sorted_window_gather.launches
+    got = sorted_window_gather(table, idx)
+    torch.cuda.synchronize()
+    assert sorted_window_gather.launches == before + 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, sorted_window_gather_plain(table, idx))
+
+
+def test_gather_empty_and_wrapper_raises(cuda):
+    table = torch.zeros((16, 2), device=cuda)
+    before = sorted_window_gather.launches
+    out = sorted_window_gather(table, torch.zeros(0, dtype=torch.int32, device=cuda))
+    assert out.shape == (0, 2) and sorted_window_gather.launches == before
+    with pytest.raises(TypeError):
+        sorted_window_gather(table, torch.zeros(4, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):
+        sorted_window_gather(table.T, torch.zeros(4, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        sorted_window_gather(table, torch.zeros(4, dtype=torch.int32))
+
+
+def test_budgeted_render_grads_through_kernel(cuda):
+    """A binding sample budget under gradient: the scatter kernel runs on
+    the compacted positions (one launch: the budget is one chunk) and the
+    table gradient matches the CPU's."""
+    from stable_nerf_tpu_torch.config import NeRFConfig
+    from stable_nerf_tpu_torch.models.nerf.grid import grid_init
+    from stable_nerf_tpu_torch.models.nerf.network import nerf_init
+    from stable_nerf_tpu_torch.models.nerf.renderer import render
+    from stable_nerf_tpu_torch.utils.tree import tree_map
+
+    cfg = NeRFConfig(channel_dim=4, grid_size=16, density_scale=3.0,
+                     encoding_sigma=HashGridConfig(n_levels=4, log2_hashmap_size=10,
+                                                   base_resolution=4))
+    g = torch.Generator().manual_seed(2)
+    params = nerf_init(0, cfg, device="cpu")
+    params["hash"]["table"].mul_(1e4)
+    grid = grid_init(cfg, device="cpu")
+    grid = grid._replace(occ=torch.rand(grid.occ.shape, generator=g) < 0.3)
+    o = torch.tensor([0.0, 0.0, 2.0]).expand(64, 3).contiguous()
+    d = torch.nn.functional.normalize(
+        torch.tensor([0.0, 0.0, -1.0]) + 0.3 * torch.randn((64, 3), generator=g), dim=-1)
+    w = torch.randn((64, 4), generator=g)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda x: x.to(dev, copy=True), params)
+        table = p["hash"]["table"].requires_grad_(True)
+        before = hash_scatter_add_per_level.launches
+        out = render(p, type(grid)(*(t.to(dev) for t in grid)), o.to(dev), d.to(dev),
+                     cfg, max_steps=32, sample_budget=100)
+        (out["image"] * w.to(dev)).sum().backward()
+        assert hash_scatter_add_per_level.launches - before == (dev == "cuda")
+        grads[dev] = table.grad.cpu()
+    assert float(grads["cpu"].abs().max()) > 0
+    torch.testing.assert_close(grads["cuda"], grads["cpu"], rtol=1e-4, atol=1e-6)
+
+
+def test_inference_step_on_card_matches_cpu(cuda):
+    """The tiny inference step (3 DDIM steps, float32, guidance 3, sparse
+    grid) on the card against the CPU, same params and draws."""
+    from stable_nerf_tpu_torch.config import (NeRFConfig, SDConfig, TrainConfig)
+    from stable_nerf_tpu_torch.data.rays import get_rays, rand_poses
+    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+    from stable_nerf_tpu_torch.models.diffusion.sd_network import (
+        SDNetworkConfig, init_ip_from_unet, sd_network_init)
+    from stable_nerf_tpu_torch.models.diffusion.unet import tiny_unet_config
+    from stable_nerf_tpu_torch.models.diffusion.vae import VAEConfig
+    from stable_nerf_tpu_torch.models.nerf.grid import grid_init
+    from stable_nerf_tpu_torch.models.nerf.network import nerf_init
+    from stable_nerf_tpu_torch.training.inference import make_inference_step
+    from stable_nerf_tpu_torch.training.joint import JointConfig
+    from stable_nerf_tpu_torch.utils.device import disable_tf32
+    from stable_nerf_tpu_torch.utils.tree import tree_map
+
+    disable_tf32()
+    cfg = JointConfig(
+        nerf=NeRFConfig(channel_dim=4, grid_size=32,
+                        encoding_sigma=HashGridConfig(n_levels=4, log2_hashmap_size=12,
+                                                      base_resolution=4)),
+        sd=SDNetworkConfig(
+            sd=SDConfig(cross_attention_dim=48, latent_size=16, image_size=32),
+            unet=tiny_unet_config(),
+            vae=VAEConfig(block_out_channels=(16, 32), layers_per_block=1,
+                          norm_groups=8)),
+        train=TrainConfig(max_steps_eval=64, sample_budget_eval_per_ray=8))
+    g = torch.Generator().manual_seed(4)
+    params = {"sd": init_ip_from_unet(sd_network_init(0, cfg.sd, device="cpu")),
+              "nerf": nerf_init(1, cfg.nerf, device="cpu")}
+    params["nerf"]["hash"]["table"].mul_(1e4)
+    grid = grid_init(cfg.nerf, device="cpu")
+    grid = grid._replace(occ=torch.rand(grid.occ.shape, generator=g) < 0.4)
+    intr = (16.0, 16.0, 8.0, 8.0)
+    rt = get_rays(rand_poses(g, 2, radius=2.0), intr, 16, 16)
+    rr = get_rays(rand_poses(g, 2, radius=2.0), intr, 16, 16)
+    batch = {"target_image": torch.rand((2, 3, 32, 32), generator=g) * 2 - 1,
+             "reference_image": torch.rand((2, 3, 32, 32), generator=g) * 2 - 1,
+             "target_rays_o": rt["rays_o"], "target_rays_d": rt["rays_d"],
+             "reference_rays_o": rr["rays_o"], "reference_rays_d": rr["rays_d"]}
+    draws = {"vae_eps": torch.randn((2, 4, 16, 16), generator=g),
+             "init_latents": torch.randn((2, 4, 16, 16), generator=g)}
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        step = make_inference_step(cfg, DDIMScheduler.create(cfg.sd.scheduler, device=dev),
+                                   3, compute_dtype=torch.float32, guidance_scale=3.0,
+                                   device=dev)
+        outs[dev] = step(tree_map(lambda x: x.to(dev), params),
+                         type(grid)(*(t.to(dev) for t in grid)),
+                         {k: v.to(dev) for k, v in batch.items()},
+                         draws={k: v.to(dev) for k, v in draws.items()})
+    for k, ref in outs["cpu"].items():
+        scale = 1.0 if k == "ssim" else float(ref.abs().max())
+        err = float((outs["cuda"][k].cpu() - ref).abs().max())
+        assert err <= 1e-3 * scale, (k, err, scale)

@@ -1,9 +1,10 @@
-"""The port's diffusion stack (nn primitives, DDIM scheduler, VAE encoder,
-IP-Adapter, U-Net, SDNetwork) against the JAX package's on the CPU, same
+"""The port's diffusion stack (nn primitives, DDIM scheduler, VAE encoder
+and decoder, IP-Adapter, U-Net, SDNetwork, image metrics) against the JAX package's on the CPU, same
 converted weights.  float32 within 1e-5 relative for the primitives and
 1e-4 for the tiny U-Net and VAE (deep stacks of f32 sums in other orders);
 the scheduler against the repo's float64 golden fixture at the JAX tests'
-own tolerances."""
+own tolerances.  The image metrics (full-f32 sums and 11-tap
+convolutions) within 1e-5."""
 
 import os
 
@@ -18,6 +19,7 @@ from stable_nerf_tpu.models.diffusion import nn as jnn
 from stable_nerf_tpu.models.diffusion import sd_network as jsd
 from stable_nerf_tpu.models.diffusion import unet as junet
 from stable_nerf_tpu.models.diffusion import vae as jvae
+from stable_nerf_tpu.utils import losses as jlosses
 from stable_nerf_tpu_torch import convert
 from stable_nerf_tpu_torch.config import SchedulerConfig
 from stable_nerf_tpu_torch.models.diffusion import nn as tnn
@@ -25,6 +27,7 @@ from stable_nerf_tpu_torch.models.diffusion import sd_network as tsd
 from stable_nerf_tpu_torch.models.diffusion import unet as tunet
 from stable_nerf_tpu_torch.models.diffusion import vae as tvae
 from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+from stable_nerf_tpu_torch.utils import losses as tlosses
 from stable_nerf_tpu_torch.utils.tree import tree_leaves, tree_map
 
 torch.set_num_threads(2)
@@ -225,3 +228,92 @@ def test_unet_bf16_compute_close_to_reference(rng, tiny_sd):
     # bf16 rounds at other places in the two frameworks: hold the output
     # to 3% of its scale
     _close(got, want, 3e-2)
+
+
+def test_vae_decode_and_decode_latents(rng, tiny_sd):
+    """The decoder (post_quant_conv, mid block, up blocks with nearest x2
+    upsampling) on scaled latents, and encode → decode end to end."""
+    jcfg, tcfg, jp, tp = tiny_sd
+    z = rng.standard_normal((2, 4, 16, 16)).astype(np.float32)
+    want = jax.jit(jvae.vae_decode, static_argnums=2)(jp["vae"], jnp.asarray(z), jcfg.vae)
+    got = tvae.vae_decode(tp["vae"], T(z), tcfg.vae)
+    assert got.shape == (2, 3, 32, 32)      # two levels: one x2 upsample
+    _close(got, want, 1e-4)
+    _close(tsd.decode_latents(tp, T(z), tcfg),
+           jax.jit(jsd.decode_latents, static_argnums=2)(jp, jnp.asarray(z), jcfg), 1e-4)
+
+
+def test_nearest_upsample_matches_jax_image_resize(rng):
+    """``jax.image.resize(..., "nearest")`` at an integer factor 2 is
+    ``F.interpolate(scale_factor=2, mode="nearest")``, exactly."""
+    x = rng.standard_normal((2, 3, 5, 7)).astype(np.float32)
+    want = jax.image.resize(jnp.asarray(x), (2, 3, 10, 14), "nearest")
+    got = torch.nn.functional.interpolate(T(x), scale_factor=2, mode="nearest")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("shape,kind", [
+    ((2, 3, 32, 32), "noise"), ((1, 3, 64, 48), "smooth"), ((2, 3, 8, 8), "small"),
+    ((1, 1, 24, 24), "equal"), ((1, 3, 20, 20), "constant")])
+def test_ssim_matches_jax(rng, shape, kind):
+    """Images in [0, 1]: unrelated noise, a smooth image and its noisy copy,
+    an image smaller than the window (no interior crop), identical images
+    (SSIM 1) and constant images (variances clamp at 0)."""
+    a = rng.random(shape).astype(np.float32)
+    b = rng.random(shape).astype(np.float32)
+    if kind == "smooth":
+        yy, xx = np.meshgrid(np.linspace(0, 1, shape[2]), np.linspace(0, 1, shape[3]),
+                             indexing="ij")
+        a = np.broadcast_to(0.5 + 0.4 * np.sin(6 * yy) * np.cos(4 * xx),
+                            shape).astype(np.float32)
+        b = np.clip(a + 0.05 * (b - 0.5), 0, 1).astype(np.float32)
+    elif kind == "equal":
+        b = a.copy()
+    elif kind == "constant":
+        a, b = np.full(shape, 0.7, np.float32), np.full(shape, 0.2, np.float32)
+    want = float(jlosses.ssim(jnp.asarray(a), jnp.asarray(b)))
+    got = tlosses.ssim(T(a), T(b))
+    assert got.dim() == 0
+    np.testing.assert_allclose(float(got), want, rtol=1e-5, atol=1e-6)
+    if kind == "equal":
+        np.testing.assert_allclose(float(got), 1.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["l1_loss", "l2_loss", "mse_loss", "mse", "psnr"])
+def test_image_losses_match_jax(rng, name):
+    a = rng.random((3, 3, 16, 12)).astype(np.float32)
+    b = rng.random((3, 3, 16, 12)).astype(np.float32)
+    want = np.asarray(getattr(jlosses, name)(jnp.asarray(a), jnp.asarray(b)))
+    got = getattr(tlosses, name)(T(a), T(b))
+    assert tuple(got.shape) == want.shape      # mse and psnr are per image, [B, 1]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sd_forward_captures_ip_attention_maps(rng, tiny_sd, dtype):
+    """``capture_ip_attn_maps``: the ip stream's softmax probabilities
+    [B, H, S, ip_tokens] in float32, outermost layer first, and the same
+    noise prediction as without capture."""
+    jcfg, tcfg, jp, tp = tiny_sd
+    lat = rng.standard_normal((2, 4, 16, 16)).astype(np.float32)
+    embeds = rng.standard_normal((4, 7, 16, 16)).astype(np.float32)
+    t = np.asarray([10, 900])
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want, wmaps = jax.jit(
+        lambda p: jsd.sd_forward(p, jnp.asarray(lat), jnp.asarray(t), jnp.asarray(embeds),
+                                 jcfg, compute_dtype=jdt, capture_ip_attn_maps=True))(jp)
+    got, maps = tsd.sd_forward(tp, T(lat), T(t), T(embeds), tcfg, compute_dtype=tdt,
+                               capture_ip_attn_maps=True)
+    plain = tsd.sd_forward(tp, T(lat), T(t), T(embeds), tcfg, compute_dtype=tdt)
+    assert torch.equal(got, plain)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    _close(got, want, tol)
+    # the tiny U-Net has cross-attention in its second down block (2), the
+    # mid block (1) and the first up block (3)
+    assert len(maps) == len(wmaps) == 6
+    for m, w in zip(maps, wmaps):
+        assert m.dtype == torch.float32 and tuple(m.shape) == w.shape
+        assert m.shape[0] == 2 and m.shape[-1] == tcfg.unet.ip_num_tokens
+        np.testing.assert_allclose(m.sum(-1).numpy(), 1.0, atol=1e-5)
+        # probabilities: absolute tolerance
+        np.testing.assert_allclose(m.numpy(), np.asarray(w), rtol=0, atol=tol)

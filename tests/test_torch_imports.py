@@ -19,9 +19,11 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+chip_smoke.load_floor_script()      # scripts/bench_torch_fused_render_floor.py
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "stable_nerf_tpu"))
 print(len(names), bad)
+print(" ".join(names))
 """
 
 
@@ -36,9 +38,13 @@ def test_port_imports_neither_jax_nor_reference_package():
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 20
+    first, names = out.stdout.strip().split("\n")
+    n, bad = first.split(" ", 1)
+    assert int(n) >= 32
     assert bad.strip() == "[]", bad
+    for mod in ("ops.compaction", "ops.ssim", "ops.hopper.gather",
+                "training.inference", "utils.losses"):
+        assert f"stable_nerf_tpu_torch.{mod}" in names.split(), mod
 
 
 def _entry_points():
@@ -47,7 +53,9 @@ def _entry_points():
     from stable_nerf_tpu_torch.models.diffusion.sd_network import sd_network_init
     from stable_nerf_tpu_torch.models.nerf.grid import grid_init
     from stable_nerf_tpu_torch.models.nerf.network import nerf_init
-    from stable_nerf_tpu_torch.training.joint import JointConfig, make_train_step
+    from stable_nerf_tpu_torch.training.inference import make_inference_step
+    from stable_nerf_tpu_torch.training.joint import (JointConfig, make_eval_step,
+                                                      make_train_step)
 
     return {
         "nerf_init": lambda: nerf_init(0, NeRFConfig()),
@@ -55,11 +63,14 @@ def _entry_points():
         "grid_init": lambda: grid_init(NeRFConfig()),
         "scheduler": lambda: DDIMScheduler.create(),
         "make_train_step": lambda: make_train_step(JointConfig(), None, None),
+        "make_eval_step": lambda: make_eval_step(JointConfig(), None),
+        "make_inference_step": lambda: make_inference_step(JointConfig(), None),
     }
 
 
 @pytest.mark.parametrize("name", ["nerf_init", "sd_network_init", "grid_init",
-                                  "scheduler", "make_train_step"])
+                                  "scheduler", "make_train_step", "make_eval_step",
+                                  "make_inference_step"])
 def test_entry_points_default_to_cuda_and_refuse_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")

@@ -1,4 +1,4 @@
-"""The port's NeRF (network, grid, dense renderer) against the JAX package's
+"""The port's NeRF (network, grid, dense and budgeted renderer) against the JAX package's
 on the CPU: same weights (converted), same rays and perturbation.
 float32 values and gradients within 1e-5 relative; the bf16 compute chain
 within bf16 rounding (2e-2)."""
@@ -133,12 +133,57 @@ def test_render_values_and_grads(rng, monkeypatch, eval_chunk):
         np.testing.assert_allclose(a / scale, np.asarray(b) / scale, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("budget", [512, 200])
+def test_render_binding_budget_values_and_grads(rng, budget):
+    """The compaction branch on a sparse grid (~30% of the cells occupied;
+    364 of the 2048 lattice points valid without jitter, so 512 packs them
+    all and 200 drops the rays' tails): image, depth, weights_sum and the
+    hash-table and MLP gradients against JAX, at the dense test's
+    tolerances."""
+    jcfg, tcfg = _cfg(density_scale=3.0)
+    tp, jp = _params(tcfg, jcfg, table_scale=1.0)
+    o, d, jstate = _render_inputs(rng, jcfg, 64)
+    occ = np.asarray(rng.random(jstate.occ.shape) < 0.3)
+    jstate = jstate._replace(occ=jnp.asarray(occ))
+    key = jax.random.PRNGKey(7)
+    noise = np.asarray(jax.random.uniform(key, (64,)))
+    g_img = rng.standard_normal((64, 4)).astype(np.float32)
+    g_ws = rng.standard_normal(64).astype(np.float32)
+    kw = dict(bg_color=0.5, max_steps=32, sample_budget=budget)
+
+    def jloss(params):
+        out = jrender.render(params, jstate, jnp.asarray(o), jnp.asarray(d), jcfg,
+                             perturb_key=key, **kw)
+        return jnp.sum(out["image"] * g_img) + jnp.sum(out["weights_sum"] * g_ws), out
+
+    (_, jout), jgrad = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jp)
+    for t in [tp["hash"]["table"], *tp["sigma_mlp"]["layers"], *tp["color_mlp"]["layers"]]:
+        t.requires_grad_(True)
+    tstate = tgrid.OccupancyGridState(*(torch.from_numpy(np.array(a)) for a in jstate))
+    out = trender.render(tp, tstate, torch.from_numpy(o), torch.from_numpy(d), tcfg,
+                         perturb=torch.from_numpy(noise), **kw)
+    ((out["image"] * torch.from_numpy(g_img)).sum()
+     + (out["weights_sum"] * torch.from_numpy(g_ws)).sum()).backward()
+    for k in ("image", "depth", "weights_sum"):
+        np.testing.assert_allclose(out[k].detach().numpy(), np.asarray(jout[k]),
+                                   rtol=RTOL, atol=ATOL)
+    assert 0.02 < float(out["weights_sum"].mean()) < 0.999
+    tgrad = convert.params_to_jax(tree_map(lambda t: t.grad, tp), like=jgrad)
+    for a, b in zip(jax.tree.leaves(tgrad), jax.tree.leaves(jgrad)):
+        scale = max(float(np.abs(np.asarray(b)).max()), 1e-12)
+        np.testing.assert_allclose(a / scale, np.asarray(b) / scale, rtol=RTOL, atol=ATOL)
+
+
 def test_binding_sample_budget_is_not_ported():
+    """Keeps its earlier name; what it holds now: a binding budget runs
+    (the renderer no longer refuses it), a budget of at least the lattice
+    is the dense path, and on an empty grid both render the background."""
     _, tcfg = _cfg()
     tp = tnet.nerf_init(0, tcfg, device="cpu")
     state = tgrid.grid_init(tcfg, device="cpu")
     rays = torch.zeros((4, 3)), torch.ones((4, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trender.render(tp, state, *rays, tcfg, max_steps=8, sample_budget=16)
-    out = trender.render(tp, state, *rays, tcfg, max_steps=8, sample_budget=32)
-    assert out["image"].shape == (4, 4)
+    bound = trender.render(tp, state, *rays, tcfg, max_steps=8, sample_budget=16)
+    dense = trender.render(tp, state, *rays, tcfg, max_steps=8, sample_budget=32)
+    assert bound["image"].shape == dense["image"].shape == (4, 4)
+    assert torch.equal(bound["image"], dense["image"])
+    assert torch.equal(bound["image"], torch.ones((4, 4)))
