@@ -14,7 +14,12 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                PyTorch version and a float64 ``index_add_``: (a) the main
                path's first backward chunk (the batch's own march
                positions), (a') the same shape at uniform positions, (b) a
-               K2-shaped table, (c) a hot row plus padding, (d) payload_bf16;
+               K2-shaped table, (c) a hot row plus padding, (d) payload_bf16,
+               (e) the chunks of a and a' one level at a time, with each
+               level's rows, distinct rows and atomics left after merging,
+               (f) a stochastic section [2^17, 8, 1], (g) rows outside their
+               level's slab, negative and padding rows, (h) an odd M and T;
+               each with the zero fill's time apart;
   gather_cases the sorted row-gather kernel against its plain version, bit
                for bit: (a) the sorted-encode floor shape (33,554,432 sorted
                items, 16·2^19 rows, f32), (b) the reference tests' three
@@ -41,6 +46,13 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                device's idle share, the full tables written to DIR.
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last the device
 line ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
+
+    python3 chip_smoke.py --scatter-bench [--root DIR]
+
+runs the card phase and the scatter cases only; with ``--root`` on the
+package of another checkout unpacked below this script's directory (the
+parent commit's, say), to compare two kernels on one card in one run of a
+shell script.
 """
 
 from __future__ import annotations
@@ -63,6 +75,7 @@ TRAIN_BUDGET = 262_144
 SERVE_REQUESTS = 3       # the first is warm-up
 SERVE_BATCH = 2
 SEED = 0
+SCATTER_RUN = 16         # kRun of csrc/hash_scatter.cu: samples a thread walks
 
 
 def emit(obj) -> None:
@@ -75,13 +88,22 @@ def nvidia_smi() -> str:
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device ms of ``fn`` over ``reps`` calls after one warm-up."""
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
+    """Mean device ms of ``fn`` over ``reps`` calls after one warm-up.
+    ``queued``: the calls are enqueued while the device is still busy with
+    ~2 ms of fills, so they run back to back there even where the host
+    takes longer to enqueue a call than the device takes to run it (a
+    wrapper's call costs the host 15-60 us)."""
     import torch
 
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        busy = torch.empty(2 ** 28, dtype=torch.uint8, device="cuda")
     torch.cuda.synchronize()
+    if queued:
+        for _ in range(24):
+            busy.zero_()
     start.record()
     for _ in range(reps):
         fn()
@@ -93,9 +115,13 @@ def cuda_ms(fn, reps: int) -> float:
 def scatter_case(name, idx, upd, n_levels, table_size, payload_bf16, reps):
     """Kernel vs plain version vs a float64 index_add_ on the same inputs.
 
-    Tolerance: atomics sum each row in an order that changes from run to
-    run; an f32 sum of a row's updates is held to 1e-5 of the row's sum of
-    |updates| (per-row relative error against the float64 sum)."""
+    Tolerance: the kernel sums a row in per-thread runs, per-block partial
+    sums in shared memory and atomics whose order changes from run to run;
+    whatever the grouping, an f32 sum of a row's updates is held to 1e-5 of
+    the row's sum of |updates| (per-row relative error against the float64
+    sum).  ``ms`` is the wrapper's call, its zero fill of the output
+    included; ``zero_fill_ms`` is that fill alone.  Every time is taken
+    the same way, on calls queued behind other work (``cuda_ms``)."""
     import torch
 
     from stable_nerf_tpu_torch.ops.hopper.scatter import (
@@ -104,7 +130,11 @@ def scatter_case(name, idx, upd, n_levels, table_size, payload_bf16, reps):
     total = n_levels * table_size
     F = upd.shape[-1]
     round_bf16 = payload_bf16 and F == 2
-    out = hash_scatter_add_per_level(idx, upd, n_levels, table_size, payload_bf16)
+
+    def kernel():
+        return hash_scatter_add_per_level(idx, upd, n_levels, table_size, payload_bf16)
+
+    out = kernel()
     plain = hash_scatter_add_plain(idx, upd, total, round_bf16)
     torch.cuda.synchronize()
 
@@ -136,16 +166,17 @@ def scatter_case(name, idx, upd, n_levels, table_size, payload_bf16, reps):
         "plain_vs_f64_max_abs": p_abs, "plain_vs_f64_max_rel": p_rel,
         "kernel_vs_plain_max_abs": kp_abs, "kernel_vs_plain_max_rel": kp_rel,
         "tolerance_rel_to_row_abs_sum": tol,
-        "ms": cuda_ms(lambda: hash_scatter_add_per_level(
-            idx, upd, n_levels, table_size, payload_bf16), reps),
-        "plain_ms": cuda_ms(lambda: hash_scatter_add_plain(idx, upd, total,
-                                                           round_bf16), reps),
+        "ms": cuda_ms(kernel, reps, queued=True),
+        "zero_fill_ms": cuda_ms(lambda: torch.zeros(
+            (total, F), dtype=torch.float32, device=upd.device), reps, queued=True),
+        "plain_ms": cuda_ms(lambda: hash_scatter_add_plain(idx, upd, total, round_bf16),
+                            reps, queued=True),
         "bound_ms": bound_ms, "bound_by": "bytes",
     }
     if keep.all() and not round_bf16:     # one PyTorch call, a yardstick only
         u = upd.reshape(-1, F)
         row["library_ms"] = cuda_ms(lambda: torch.zeros(
-            (total, F), device=upd.device).index_add_(0, flat, u), reps)
+            (total, F), device=upd.device).index_add_(0, flat, u), reps, queued=True)
     else:
         row["library_ms"] = None
     row["ok"] = bool(k_rel <= tol and kp_rel <= 2 * tol and math.isfinite(k_abs))
@@ -174,35 +205,86 @@ def main_path_positions(cfg, batch, dev, g):
     return (pos.reshape(-1, 3)[: 2 ** 17] + b) / (2 * b)
 
 
+def merged_atomics(idx_level) -> int:
+    """How many atomics the kernel's merging leaves of one level's [M, 8]
+    rows: a pair of corners (c, c + 4) joins the run of the sample before
+    it while both rows repeat (a run ends after SCATTER_RUN samples), and a
+    run costs one atomic where its two rows share an aligned 16-byte slot,
+    else two."""
+    import torch
+
+    lo, hi = idx_level[:, :4], idx_level[:, 4:]
+    starts = torch.ones_like(lo, dtype=torch.bool)
+    starts[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
+    starts[::SCATTER_RUN] = True
+    paired = (lo ^ hi) == 1
+    return int((starts & paired).sum() + 2 * (starts & ~paired).sum())
+
+
+def per_level_breakdown(idx, upd, cfg, reps):
+    """A [M, L, C] chunk one level at a time: L single-level calls on
+    contiguous copies of ``idx[:, l:l+1]`` and ``upd[:, l:l+1]``, each
+    timed as the wrapper's call less the zero fill of its output alone.
+    The rows keep their offsets and the output its full size
+    (``n_levels=L``), so every call finds the cache as the whole call's
+    zero fill leaves it.  A single-level call starts a sixteenth of the
+    whole call's blocks, so the times need not add up to the whole call's."""
+    import torch
+
+    from stable_nerf_tpu_torch.ops.encoding import _level_geometry
+    from stable_nerf_tpu_torch.ops.hopper.scatter import hash_scatter_add_per_level
+
+    L, T = cfg.n_levels, cfg.table_size
+    _, resolutions, dense = _level_geometry(cfg)
+    fill = cuda_ms(lambda: torch.zeros((L * T, 2), device=upd.device), reps, queued=True)
+    levels = []
+    for l in range(L):
+        i = idx[:, l:l + 1].contiguous()
+        u = upd[:, l:l + 1].contiguous()
+        ms = cuda_ms(lambda: hash_scatter_add_per_level(i, u, L, T), reps, queued=True)
+        levels.append({"level": l, "resolution": resolutions[l], "dense": dense[l],
+                       "rows": min(resolutions[l] ** 3, T),
+                       "distinct_rows": int(torch.unique(i).numel()),
+                       "atomics_after_merging": merged_atomics(idx[:, l]),
+                       "call_ms": ms, "kernel_ms": ms - fill})
+    return {"updates_per_level": idx[:, 0].numel(), "zero_fill_ms": fill,
+            "levels": levels, "sum_kernel_ms": sum(r["kernel_ms"] for r in levels)}
+
+
 def kernel_cases(dev, x_main):
     import torch
 
     from stable_nerf_tpu_torch.config import HashGridConfig
-    from stable_nerf_tpu_torch.ops.encoding import _indices_weights_exact
+    from stable_nerf_tpu_torch.ops.encoding import (_indices_weights_exact,
+                                                    _indices_weights_stochastic)
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     cases = []
 
     # (a) the main path: one 131,072-sample chunk of the 16-level 2^19
-    # grid, 8 corners → 16,777,216 updates into 16·2^19 rows; (a') the
-    # same at uniform positions, which spread the updates over the rows
+    # grid, 8 corners → 16,777,216 updates into 16·2^19 rows; (a') the same
+    # at uniform positions, which spread the updates over the rows; (e) each
+    # of them one level at a time
     cfg = HashGridConfig()
+    T = cfg.table_size
     M = x_main.shape[0]
     gout = torch.randn((M, cfg.n_levels, 1, 2), generator=g, device=dev)
+    breakdowns = {}
     for name, x in (("a_main_path", x_main),
                     ("a_uniform_positions", torch.rand((M, 3), generator=g, device=dev))):
         rows, cw = _indices_weights_exact(x, cfg, 0, cfg.n_levels)
-        upd = (cw[..., None] * gout).contiguous()
-        cases.append(scatter_case(name, rows.to(torch.int32), upd, cfg.n_levels,
-                                  cfg.table_size, False, reps=20))
+        idx, upd = rows.to(torch.int32), (cw[..., None] * gout).contiguous()
         del rows, cw
+        cases.append(scatter_case(name, idx, upd, cfg.n_levels, T, False, reps=20))
+        breakdowns[name] = per_level_breakdown(idx, upd, cfg, reps=20)
+        del idx, upd
 
     # (b) a K2-shaped table: L'·T = 3·1024 (a multiple of 1024, not 4096)
-    L, T, Mb = 3, 1024, 100_000
-    idx = (torch.randint(0, T, (Mb, L, 8), generator=g, device=dev)
-           + torch.arange(L, device=dev)[None, :, None] * T).to(torch.int32)
+    L, Tb, Mb = 3, 1024, 100_000
+    idx = (torch.randint(0, Tb, (Mb, L, 8), generator=g, device=dev)
+           + torch.arange(L, device=dev)[None, :, None] * Tb).to(torch.int32)
     upd_b = torch.randn((Mb, L, 8, 2), generator=g, device=dev)
-    cases.append(scatter_case("b_k2_table", idx.contiguous(), upd_b, L, T, False,
+    cases.append(scatter_case("b_k2_table", idx.contiguous(), upd_b, L, Tb, False,
                               reps=20))
 
     # (c) one hot row plus padding rows >= T that must be dropped
@@ -218,8 +300,38 @@ def kernel_cases(dev, x_main):
     rows, cw = _indices_weights_exact(q, cfg, 0, cfg.n_levels)
     upd = (cw[..., None] * gout[: M // 4]).contiguous()
     cases.append(scatter_case("d_payload_bf16", rows.to(torch.int32), upd,
-                              cfg.n_levels, cfg.table_size, True, reps=10))
-    return cases
+                              cfg.n_levels, T, True, reps=10))
+
+    # (f) a stochastic section of the main-path chunk: the hybrid encode's
+    # levels 8-15, one corner a level, rows local to the section
+    lv0 = 8
+    rows, cw = _indices_weights_stochastic(x_main, cfg, lv0, cfg.n_levels)
+    upd = (cw[..., None] * gout[:, lv0:]).contiguous()
+    cases.append(scatter_case("f_stochastic_section", (rows - lv0 * T).to(torch.int32),
+                              upd, cfg.n_levels - lv0, T, False, reps=20))
+    del rows, cw, upd
+
+    # (g) rows outside their level's slab (added, past the level's sum in
+    # shared memory), negative and padding rows (dropped)
+    L, Tg, Mg = 4, 4096, 60_000
+    idx = (torch.randint(0, Tg, (Mg, L, 8), generator=g, device=dev)
+           + torch.arange(L, device=dev)[None, :, None] * Tg).to(torch.int32)
+    idx[::7, 1, 0] = idx[::7, 3, 0]          # level 1's entry in level 3's slab
+    idx[::11, 2, 5] = -3
+    idx[::13, 0, 1] = L * Tg
+    cases.append(scatter_case("g_foreign_rows", idx,
+                              torch.randn((Mg, L, 8, 2), generator=g, device=dev),
+                              L, Tg, False, reps=10))
+
+    # (h) an odd M and T: ragged tiles, levels that each fit shared memory
+    # in a table that does not
+    L, Th, Mh = 16, 3 * 1024, 100_003
+    idx = (torch.randint(0, Th, (Mh, L, 8), generator=g, device=dev)
+           + torch.arange(L, device=dev)[None, :, None] * Th).to(torch.int32)
+    cases.append(scatter_case("h_odd_m_and_t", idx,
+                              torch.randn((Mh, L, 8, 2), generator=g, device=dev),
+                              L, Th, False, reps=10))
+    return cases, breakdowns
 
 
 def same_values(a, b) -> bool:
@@ -707,17 +819,55 @@ def profile_step(state, out_dir, what):
             "table": path}
 
 
+def scatter_bench(dev, cfg, smi) -> int:
+    """The scatter kernel's cases alone, on the batch a full run makes
+    (same seeds, no weights)."""
+    import torch
+
+    import stable_nerf_tpu_torch
+
+    batch = make_batch(cfg, dev, torch.Generator(device=dev).manual_seed(SEED + 2), 1)
+    x_main = main_path_positions(cfg, batch, dev,
+                                 torch.Generator(device=dev).manual_seed(SEED + 5))
+    cases, breakdowns = kernel_cases(dev, x_main)
+    emit({"phase": "scatter_bench",
+          "package": os.path.relpath(os.path.dirname(stable_nerf_tpu_torch.__file__),
+                                     os.path.dirname(os.path.abspath(__file__))),
+          "nvidia_smi": smi, "cases": cases, "e_per_level": breakdowns})
+    print(smi, flush=True)
+    failed = [c["case"] for c in cases if not c["ok"]]
+    if failed:
+        print(f"chip_smoke: failed: {failed}", file=sys.stderr)
+    return 1 if failed else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="profile one more train step and one more serving request and "
                          "write the tables to DIR")
+    ap.add_argument("--scatter-bench", action="store_true",
+                    help="run only the card phase and the scatter kernel's cases, with "
+                         "the main-path chunk one level at a time, and stop")
+    ap.add_argument("--root", metavar="DIR",
+                    help="with --scatter-bench: measure the stable_nerf_tpu_torch "
+                         "package under DIR, another checkout unpacked below this "
+                         "script's directory (e.g. the parent commit's), with this "
+                         "script's cases")
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.root:
+        if not args.scatter_bench:
+            ap.error("--root goes with --scatter-bench")
+        here = os.path.dirname(os.path.abspath(__file__))
+        root = os.path.realpath(args.root)
+        if os.path.commonpath([root, os.path.realpath(here)]) != os.path.realpath(here):
+            ap.error(f"--root must lie below {here}")
+        sys.path.insert(0, root)
     from stable_nerf_tpu_torch.config import NeRFConfig, TrainConfig
     from stable_nerf_tpu_torch.models.diffusion.sd_network import SDNetworkConfig
     from stable_nerf_tpu_torch.ops.hopper import build
@@ -742,6 +892,8 @@ def main() -> int:
     cfg = JointConfig(nerf=NeRFConfig(channel_dim=4), sd=SDNetworkConfig(),
                       train=TrainConfig(frozen_dtype="bfloat16", max_steps_train=256,
                                         trainable_scope="reference"))
+    if args.scatter_bench:
+        return scatter_bench(dev, cfg, smi)
     t = time.perf_counter()
     setup = make_setup(cfg, dev, SEED)
     torch.cuda.synchronize()
@@ -751,8 +903,8 @@ def main() -> int:
 
     x_main = main_path_positions(cfg, setup[4], dev,
                                  torch.Generator(device=dev).manual_seed(SEED + 5))
-    cases = kernel_cases(dev, x_main)
-    emit({"phase": "kernel_cases", "cases": cases})
+    cases, breakdowns = kernel_cases(dev, x_main)
+    emit({"phase": "kernel_cases", "cases": cases, "e_per_level": breakdowns})
     del x_main
     floor = load_floor_script()
     gathers = gather_cases(dev, floor)

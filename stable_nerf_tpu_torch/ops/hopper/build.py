@@ -27,7 +27,8 @@ _SIGNATURES = {
     "hash_scatter": {
         "hash_scatter_add": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                               ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p], ctypes.c_int),
     },
     "sorted_gather": {
         "sorted_window_gather": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

@@ -10,7 +10,8 @@ table sizes with unsorted f32 atomics (design and bound in the source).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.  ``hash_scatter_add_per_level.launches``
-counts kernel launches.
+counts the wrapper's calls that launched (one a call, however many grids
+the C function starts for it).
 """
 
 from __future__ import annotations
@@ -61,6 +62,8 @@ def hash_scatter_add_per_level(idx: torch.Tensor, upd: torch.Tensor,
     """
     _check(idx, upd)
     total = n_levels * table_size
+    if total >= 2 ** 31:
+        raise ValueError(f"{n_levels}·{table_size} rows do not fit int32 indices")
     F = upd.shape[-1]
     round_bf16 = bool(payload_bf16 and F == 2)
     if idx.device.type == "cpu":
@@ -70,14 +73,14 @@ def hash_scatter_add_per_level(idx: torch.Tensor, upd: torch.Tensor,
     from .build import load
 
     out = torch.zeros((total, F), dtype=torch.float32, device=upd.device)
-    n = idx.numel()
-    if n == 0:
+    if idx.numel() == 0 or total == 0:
         return out
+    M, Lp, C = idx.shape
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream(idx.device).cuda_stream
         rc = load("hash_scatter").hash_scatter_add(
-            idx.data_ptr(), upd.data_ptr(), out.data_ptr(), n, total, F,
-            int(round_bf16), stream)
+            idx.data_ptr(), upd.data_ptr(), out.data_ptr(), M, Lp, C, n_levels,
+            table_size, F, int(round_bf16), stream)
     if rc != 0:
         raise RuntimeError(f"hash_scatter_add launch failed: CUDA error {rc}")
     hash_scatter_add_per_level.launches += 1

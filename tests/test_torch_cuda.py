@@ -6,9 +6,10 @@ only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Tolerance: the scatter kernel adds with f32 atomics, whose order changes
-from run to run, so each row's sum is held to 1e-5 of the row's sum of
-|updates| against the plain version's index_add_; the encode's table
+Tolerance: the scatter kernel sums a row in per-thread runs, per-block
+partial sums and f32 atomics whose order changes from run to run, so each
+row's sum is held to 1e-5 of the row's sum of |updates| against the plain
+version's index_add_; the encode's table
 gradient (~10 updates a row) to 1e-5 relative and absolute.  The gather
 kernel only rounds and moves values: bit for bit.  The tiny inference
 step on the card against the CPU: 1e-3 of each key's scale (float32 sums
@@ -35,20 +36,24 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("C", [1, 8])
 @pytest.mark.parametrize("L,T,F,payload_bf16", [
-    (16, 2 ** 12, 2, False),    # K1-shaped: L'·T a multiple of 4096
-    (16, 2 ** 12, 2, True),     # payload_bf16
-    (3, 1024, 2, False),        # K2-shaped: 3·1024 is not a multiple of 4096
+    (16, 2 ** 12, 2, False),    # K1-shaped: the table does not fit shared
+    (16, 2 ** 12, 2, True),     # memory, each level does; payload_bf16
+    (3, 1024, 2, False),        # K2-shaped: the whole table fits
     (4, 1024, 3, False),        # a width other than the grid's 2 features
+    (2, 2 ** 16, 2, False),     # no level fits shared memory
 ])
-def test_kernel_matches_plain(cuda, L, T, F, payload_bf16):
+def test_kernel_matches_plain(cuda, L, T, F, payload_bf16, C):
     g = torch.Generator(device=cuda).manual_seed(0)
-    M, C = 20_000, 8
+    M = 20_003                               # ragged tiles
     idx = (torch.randint(0, T, (M, L, C), generator=g, device=cuda)
            + torch.arange(L, device=cuda)[None, :, None] * T).to(torch.int32)
     idx[:100, 0, 0] = 7                      # a hot row
+    idx[1000:3000] = idx[1000:1001]          # runs of equal samples
     idx[-10:, -1, -1] = L * T                # padding rows, dropped
     idx[-10:, 0, -1] = -1
+    idx[5000:5050, 0, 0] = idx[5000:5050, -1, 0]    # rows in another level's slab
     upd = torch.randn((M, L, C, F), generator=g, device=cuda)
     before = hash_scatter_add_per_level.launches
     got = hash_scatter_add_per_level(idx, upd, L, T, payload_bf16)

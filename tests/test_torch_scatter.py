@@ -104,15 +104,115 @@ def test_payload_bf16_rounds_each_update_to_nearest_even():
     np.testing.assert_array_equal(got[0], ref[0])
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity"])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity", "rows_beyond_int32",
+                                 "devices_differ", "no_kernel_for_device"])
 def test_wrapper_rejects_bad_inputs(bad):
     idx = torch.zeros((4, 2, 8), dtype=torch.int32)
     upd = torch.zeros((4, 2, 8, 2))
+    n_levels, T = 2, 16
     if bad == "dtype":
         idx = idx.long()
     elif bad == "shape":
         upd = upd[:, :1]
-    else:
+    elif bad == "contiguity":
         upd = torch.zeros((4, 2, 2, 8)).transpose(2, 3)
+    elif bad == "rows_beyond_int32":
+        n_levels, T = 2 ** 12, 2 ** 19
+    elif bad == "devices_differ":
+        upd = upd.to("meta")
+    else:
+        idx, upd = idx.to("meta"), upd.to("meta")
     with pytest.raises((TypeError, ValueError)):
-        hash_scatter_add_per_level(idx, upd, 2, 16)
+        hash_scatter_add_per_level(idx, upd, n_levels, T)
+
+
+def _per_level_inputs(rng, M, L, T, C, F=2):
+    local = rng.integers(0, T, (M, L, C))
+    idx = (local + np.arange(L)[None, :, None] * T).astype(np.int32)
+    upd = (rng.standard_normal((M, L, C, F)) * 10).astype(np.float32)
+    return idx, upd
+
+
+@pytest.mark.parametrize("M,L,T,C", [
+    (400, 4, 256, 8),       # every level's slab small enough for shared memory
+    (401, 3, 3 * 1024, 8),  # an odd M and T
+    (400, 4, 256, 1),       # one corner a level
+])
+def test_rows_outside_their_levels_slab_are_added(rng, M, L, T, C):
+    """A level's entry may name a row of another level's slab: it is added
+    there; only rows outside the whole table are dropped."""
+    idx, upd = _per_level_inputs(rng, M, L, T, C)
+    idx[::7, 1, 0] = idx[::7, L - 1, 0]         # level 1's entry in the last slab
+    idx[::5, L - 1, -1] = idx[::5, 0, -1]       # and the last level's in slab 0
+    idx[0, 0, :2] = L * T                       # padding, dropped
+    want = np.asarray(jax_per_level(jnp.asarray(idx), jnp.asarray(upd), L, T,
+                                    use_pallas=False))
+    got = hash_scatter_add_per_level(torch.from_numpy(idx), torch.from_numpy(upd), L, T)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    foreign = np.zeros((L * T, 2), np.float64)
+    np.add.at(foreign, idx[::7, 1, 0], upd[::7, 1, 0])
+    assert np.abs(foreign).sum() > 0            # the case holds such rows
+
+
+@pytest.mark.parametrize("payload_bf16", [False, True])
+def test_one_corner_sections_match_jax(rng, payload_bf16):
+    """The stochastic encode's shape: one corner a (sample, level)."""
+    M, L, T = 3000, 8, 512
+    idx, upd = _per_level_inputs(rng, M, L, T, 1)
+    want = np.asarray(jax_per_level(jnp.asarray(idx), jnp.asarray(upd), L, T,
+                                    use_pallas=False, payload_bf16=payload_bf16))
+    got = hash_scatter_add_per_level(torch.from_numpy(idx), torch.from_numpy(upd), L, T,
+                                     payload_bf16).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("F", [1, 4])
+def test_other_feature_widths_match_jax(rng, F):
+    """Widths other than the grid's 2; payload_bf16 is ignored there."""
+    M, L, T = 300, 3, 128
+    idx, upd = _per_level_inputs(rng, M, L, T, 8, F)
+    want = np.asarray(jax_per_level(jnp.asarray(idx), jnp.asarray(upd), L, T,
+                                    use_pallas=False, payload_bf16=True))
+    got = hash_scatter_add_per_level(torch.from_numpy(idx), torch.from_numpy(upd), L, T,
+                                     payload_bf16=True).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_no_updates_give_a_zero_table():
+    idx = torch.zeros((0, 3, 8), dtype=torch.int32)
+    got = hash_scatter_add_per_level(idx, torch.zeros((0, 3, 8, 2)), 3, 64)
+    assert got.shape == (3 * 64, 2) and got.dtype == torch.float32
+    assert not got.any()
+
+
+@pytest.mark.parametrize("mode", ["exact", "hybrid"])
+def test_encode_backward_gives_each_section_its_own_slabs(monkeypatch, mode):
+    """The hash encode's backward calls the scatter once a section, with
+    the section's levels, rows local to the section (level l of it in
+    [l·T, (l+1)·T)) and 8 corners (exact) or 1 (stochastic) a level."""
+    from stable_nerf_tpu_torch.config import HashGridConfig
+    from stable_nerf_tpu_torch.ops import encoding
+
+    cfg = HashGridConfig(n_levels=6, log2_hashmap_size=9, base_resolution=4)
+    T = cfg.table_size
+    calls = []
+
+    def record(idx, upd, n_levels, table_size, payload_bf16=False):
+        slabs = torch.arange(n_levels)[None, :, None]
+        assert bool(((idx >= slabs * table_size) & (idx < (slabs + 1) * table_size)).all())
+        calls.append((tuple(idx.shape), tuple(upd.shape), n_levels, table_size))
+        return hash_scatter_add_per_level(idx, upd, n_levels, table_size, payload_bf16)
+
+    monkeypatch.setattr(encoding, "hash_scatter_add_per_level", record)
+    g = torch.Generator().manual_seed(0)
+    table = torch.rand((cfg.n_levels * T, 2), generator=g).requires_grad_(True)
+    x = torch.rand((50, 3), generator=g)
+    encoding.hash_grid_encode({"table": table}, x, cfg, custom_bwd=True,
+                              stochastic=mode == "hybrid",
+                              stochastic_min_level=2).sum().backward()
+    if mode == "exact":
+        assert calls == [((50, 6, 8), (50, 6, 8, 2), 6, T)]
+    else:
+        assert calls == [((50, 2, 8), (50, 2, 8, 2), 2, T),
+                         ((50, 4, 1), (50, 4, 1, 2), 4, T)]
+    assert table.grad.shape == table.shape and float(table.grad.abs().sum()) > 0
