@@ -43,7 +43,18 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                stage, and one request at guidance_scale 3;
   profile      (with --profile DIR) one more train step and one more serving
                request under torch.profiler: device time by kernel and the
-               device's idle share, the full tables written to DIR.
+               device's idle share, the full tables written to DIR;
+  train_loop   the training loop (training/loop.py::train) at the same full
+               width over 10 scenes of datasets/nerf/synthetic_spheres.npz
+               at 512² / 64²: 2 epochs (stochastic encode, then exact), each
+               with its grid refresh, validation and trainable-only
+               checkpoint, one inference request; a restore compared bit for
+               bit with the state the run ended with; a resume to a third
+               epoch.  Per epoch: steps, wall, refresh ms, occupied fraction,
+               scatter launches (16 a dense exact step); checkpoint bytes and
+               seconds, restore seconds, peak memory;
+  cli          python -m stable_nerf_tpu_torch.train --tiny on the synthetic
+               scene for one epoch, then --inference on its workdir.
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last the device
 line ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
 
@@ -76,6 +87,7 @@ SERVE_REQUESTS = 3       # the first is warm-up
 SERVE_BATCH = 2
 SEED = 0
 SCATTER_RUN = 16         # kRun of csrc/hash_scatter.cu: samples a thread walks
+LOOP_SCENES = 10         # scenes of the training loop's run: an 8 / 1 / 1 split
 
 
 def emit(obj) -> None:
@@ -772,6 +784,267 @@ def serve(dev, cfg, setup):
     return row, (step, params, grid, make_batch(cfg, dev, g, SERVE_BATCH), g)
 
 
+class SceneSubset:
+    """The first ``n`` scenes of a dataset, with what the training loop
+    reads of one: ``__len__``, ``__getitem__``, ``intrinsic``, ``all_poses()``."""
+
+    def __init__(self, ds, n):
+        self.ds, self.n, self.intrinsic = ds, n, ds.intrinsic
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        if not 0 <= i < self.n:
+            raise IndexError(i)
+        return self.ds[i]
+
+    def all_poses(self):
+        import numpy as np
+
+        return np.concatenate([self.ds.reference_poses[:self.n],
+                               self.ds.target_poses[:self.n]])
+
+
+class LoopLog:
+    """The training loop's log lines, with the scatter launches counted
+    from one epoch's grid refresh to the end of its train steps and
+    validation (neither the refresh, nor validation, nor inference has a
+    backward)."""
+
+    PATTERNS = {
+        "trainable": r"grid: ([\d.]+) of the cells seen by a camera",
+        "refresh": r"epoch (\d+): grid refresh ([\d.]+) ms, occupied ([\d.]+)",
+        "epoch": r"epoch (\d+): train \S+ val \S+ \(\d+ rays/s, (\d+) steps in ([\d.]+) s\)",
+        "saved": r"checkpoint step (\d+) saved: (\d+) bytes in ([\d.]+) s",
+        "resumed": r"resumed from checkpoint step (\d+) .* in ([\d.]+) s",
+        "validation": r"epoch (\d+): validation (\d+) batches in ([\d.]+) s",
+        "inference": r"epoch (\d+): inference (\d+) requests in ([\d.]+) s",
+        "verified": r"checkpoints: frozen checksum verified",
+    }
+
+    def __init__(self, counter):
+        self.counter, self.found = counter, []
+        self._start = 0
+
+    def __call__(self, line):
+        import re
+
+        line = str(line)
+        for kind, pat in self.PATTERNS.items():
+            m = re.search(pat, line)
+            if m:
+                found = (kind,) + m.groups()
+                if kind == "refresh":
+                    self._start = self.counter.launches
+                elif kind == "epoch":
+                    found += (self.counter.launches - self._start,)
+                self.found.append(found)
+
+    def of(self, kind):
+        return [f[1:] for f in self.found if f[0] == kind]
+
+
+def train_loop(dev, cfg, here):
+    """The port's training loop at full width: random weights (seed 0), 10
+    scenes of the committed synthetic scene at 512² / 64² (an 8 / 1 / 1
+    split), two epochs (epoch 0 on the stochastic encode, epoch 1 exact,
+    validation each, one inference request of 50 DDIM steps, a
+    trainable-only checkpoint each), then a resume to a third epoch.  A
+    restore through CheckpointManager must equal the params, AdamW state
+    and grid the first run ended with, bit for bit."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from stable_nerf_tpu_torch.data.dataset import StableNeRFDataset, iterate, split_dataset
+    from stable_nerf_tpu_torch.data.prefetch import device_prefetch
+    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+    from stable_nerf_tpu_torch.models.nerf.grid import grid_init
+    from stable_nerf_tpu_torch.ops.hopper.scatter import hash_scatter_add_per_level
+    from stable_nerf_tpu_torch.training import loop
+    from stable_nerf_tpu_torch.training.checkpoints import CheckpointManager
+    from stable_nerf_tpu_torch.training.joint import joint_trainable_mask, make_train_step
+    from stable_nerf_tpu_torch.utils.tree import partition, tree_leaves
+
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, epochs=2, stochastic_until_epoch=1, val_every=1, inference_every=2,
+        checkpoint_every=1, checkpoint_trainable_only=True, seed=SEED))
+    workdir = os.path.join(here, ".cache", "chip_smoke_train_loop")
+    shutil.rmtree(workdir, ignore_errors=True)
+    t = time.perf_counter()
+    ds = SceneSubset(StableNeRFDataset("synthetic", shape=cfg.sd.sd.image_size,
+                                       encoded_shape=cfg.latent_hw, seed=SEED,
+                                       root=os.path.join(here, "datasets")), LOOP_SCENES)
+    data_s = time.perf_counter() - t
+    optimizers = []
+    make_optimizer = loop.make_optimizer
+
+    def keep_optimizer(*a, **kw):          # the optimizer the first run ends with
+        optimizers.append(make_optimizer(*a, **kw))
+        return optimizers[-1]
+
+    log = LoopLog(hash_scatter_add_per_level)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hash_scatter_add_per_level.launches = 0
+    loop.make_optimizer = keep_optimizer
+    try:
+        t = time.perf_counter()
+        params, grid, history = loop.train(cfg, ds, workdir=workdir, seed=SEED,
+                                           log_fn=log, device=dev)
+        first_s = time.perf_counter() - t
+    finally:
+        loop.make_optimizer = make_optimizer
+    launches_first = hash_scatter_add_per_level.launches
+    peak_first = torch.cuda.max_memory_allocated(dev)
+    opt = optimizers[0]
+
+    # restore into a fresh run's live tensors, as a resume does
+    t = time.perf_counter()
+    fresh = loop.build_initial_params(cfg, SEED, SEED + 1, device=dev)
+    mask = joint_trainable_mask(fresh, cfg.train.trainable_scope)
+    fresh_opt = make_optimizer(cfg.train, fresh, mask)
+    ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"))
+    state = ckpt.restore(template={"trainable": partition(fresh, mask)[0],
+                                   "opt_state": None, "extra": None,
+                                   "grid_state": grid_init(cfg.nerf, device=dev)})
+    fresh_opt.load_state_dict(state["opt_state"]["optimizer"])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    params_equal = all(torch.equal(a, b) and a.dtype == b.dtype
+                       for a, b in zip(tree_leaves(params), tree_leaves(fresh)))
+    grid_equal = all(torch.equal(a, b) for a, b in zip(grid, state["grid_state"]))
+    opt_equal = all(
+        set(opt.state[p]) == set(fresh_opt.state[q])
+        and all(torch.equal(v.cpu(), fresh_opt.state[q][k].cpu())
+                for k, v in opt.state[p].items())
+        for p, q in zip([p for g in opt.param_groups for p in g["params"]],
+                        [q for g in fresh_opt.param_groups for q in g["params"]]))
+    opt_steps = sorted({int(st["step"]) for st in fresh_opt.state.values()})
+    del fresh, fresh_opt, state
+
+    # the loop's own step on the same train batches outside the loop, each
+    # timed over a synchronize as joint_train times its steps: what the
+    # loop adds around a step is its epoch time less these
+    step = make_train_step(cfg, DDIMScheduler.create(cfg.sd.scheduler, device=dev), opt,
+                           device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    tr_idx = split_dataset(len(ds), seed=SEED)[0]
+    step_ms = []
+    for batch in device_prefetch(iterate(ds, tr_idx, cfg.train.batch_size), device=dev):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(params, grid, batch, generator=g)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    del params, grid, opt, optimizers, step
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    hash_scatter_add_per_level.launches = 0
+    t = time.perf_counter()
+    _, grid, history2 = loop.train(dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, epochs=3)), ds, workdir=workdir,
+        seed=SEED, resume=True, log_fn=log, device=dev)
+    resume_s = time.perf_counter() - t
+    launches_resume = hash_scatter_add_per_level.launches
+    peak_resume = torch.cuda.max_memory_allocated(dev)
+
+    # the host side of the data path alone: collate, pin, copy to the card
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    n_batches = sum(1 for _ in device_prefetch(iterate(ds, tr_idx, cfg.train.batch_size),
+                                               device=dev))
+    torch.cuda.synchronize()
+    prefetch_ms = (time.perf_counter() - t) * 1e3 / n_batches
+
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    epochs_rec = [r for r in records if r.get("kind") != "inference"]
+    inference_rec = [r for r in records if r.get("kind") == "inference"]
+    finite = all(math.isfinite(v) for r in records for k, v in r.items() if k != "kind")
+    steps = len(split_dataset(len(ds), seed=SEED)[0]) // cfg.train.batch_size
+    samples = 2 * cfg.train.batch_size * cfg.latent_hw ** 2 * cfg.train.max_steps_train
+    chunks = samples // 2 ** 17 if samples > 2 ** 17 and samples % 2 ** 17 == 0 else 1
+    refresh = log.of("refresh")
+    per_epoch = []
+    for (e, n, wall, launches), (_, ms, occ) in zip(log.of("epoch"), refresh):
+        e = int(e)
+        per_epoch.append({
+            "epoch": e, "encode": "stochastic" if e < cfg.train.stochastic_until_epoch
+            else "exact", "steps": int(n), "train_wall_s": float(wall),
+            "steps_per_s": int(n) / float(wall), "grid_refresh_ms": float(ms),
+            "occupied_fraction": float(occ), "scatter_launches": launches,
+            "expected_launches": None if e < cfg.train.stochastic_until_epoch
+            else chunks * int(n)})
+    exact_ok = all(r["scatter_launches"] == r["expected_launches"] for r in per_epoch
+                   if r["expected_launches"] is not None)
+    trainable = float(log.of("trainable")[0][0])
+    row = {
+        "phase": "train_loop", "scenes": LOOP_SCENES, "image": cfg.sd.sd.image_size,
+        "latent": cfg.latent_hw, "dataset_load_s": data_s, "first_call_s": first_s,
+        "resume_call_s": resume_s, "epochs": per_epoch,
+        "grid_trainable_share": trainable,
+        "checkpoints": [{"step": int(s), "bytes": int(b), "save_s": float(sec)}
+                        for s, b, sec in log.of("saved")],
+        "resume_restore_s": [float(sec) for _, sec in log.of("resumed")],
+        "check_restore_s": restore_s, "frozen_checksum_verified": bool(log.of("verified")),
+        "validation_s": [float(sec) for _, _, sec in log.of("validation")],
+        "inference_s": [float(sec) for _, _, sec in log.of("inference")],
+        "prefetch_ms_per_batch": prefetch_ms,
+        "step_ms_outside_loop": step_ms,
+        "restore_equal": {"params": params_equal, "adamw_state": opt_equal,
+                          "grid": grid_equal},
+        "adamw_steps_restored": opt_steps,
+        "metrics_records": {"epoch": len(epochs_rec), "inference": len(inference_rec)},
+        "losses": [[r["train_loss"], r["val_loss"]] for r in epochs_rec],
+        "inference": inference_rec, "scatter_launches": launches_first + launches_resume,
+        "steps_per_epoch": steps, "max_memory_allocated": {"first_call": peak_first,
+                                                          "resume_call": peak_resume},
+    }
+    row["ok"] = bool(
+        [r["epoch"] for r in per_epoch] == [0, 1, 2] and exact_ok and trainable > 0
+        and params_equal and opt_equal and grid_equal and opt_steps == [2 * steps]
+        and row["frozen_checksum_verified"] and len(epochs_rec) == 3
+        and len(inference_rec) == 1 and finite and [r["epoch"] for r in history2] == [2]
+        and int(grid.iter_density) == 3 and launches_first + launches_resume > 0)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return row
+
+
+def cli(here):
+    """``python -m stable_nerf_tpu_torch.train`` on the card: a tiny one-epoch
+    run over the synthetic scene, then ``--inference`` on its workdir."""
+    import glob
+    import shutil
+
+    workdir = os.path.join(here, "chiprun_out", "cli")
+    shutil.rmtree(workdir, ignore_errors=True)
+    common = [sys.executable, "-m", "stable_nerf_tpu_torch.train", "--tiny", "--dataset",
+              "synthetic", "--image-size", "32", "--latent-size", "16", "--workdir", workdir]
+    runs = {}
+    for name, extra in (("train", ["--epochs", "1"]), ("inference", ["--inference"])):
+        t = time.perf_counter()
+        out = subprocess.run(common + extra, cwd=here, capture_output=True, text=True,
+                             timeout=600)
+        runs[name] = {"rc": out.returncode, "s": time.perf_counter() - t,
+                      "tail": out.stdout.strip().splitlines()[-3:]}
+        if out.returncode:
+            print(out.stdout[-4000:] + out.stderr[-4000:], file=sys.stderr)
+    renders = sorted(os.path.basename(p) for p in
+                     glob.glob(os.path.join(workdir, "renders", "denoised_*")))
+    row = {"phase": "cli", "runs": runs, "metrics_jsonl": os.path.exists(
+               os.path.join(workdir, "metrics.jsonl")),
+           "checkpoints": sorted(os.listdir(os.path.join(workdir, "checkpoints")))
+           if os.path.isdir(os.path.join(workdir, "checkpoints")) else [],
+           "renders": renders}
+    row["ok"] = bool(all(r["rc"] == 0 for r in runs.values()) and row["metrics_jsonl"]
+                     and row["checkpoints"] and renders)
+    return row
+
+
 def profile_step(state, out_dir, what):
     """One more call of a step (``what``: "joint_step" or "serve_request")
     under torch.profiler: device time by kernel name, the busy share of the
@@ -923,6 +1196,14 @@ def main() -> int:
     if args.profile:
         emit(profile_step(state, args.profile, "joint_step"))
         emit(profile_step(serve_state, args.profile, "serve_request"))
+    del setup, state, serve_state, opt
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    looped = train_loop(dev, cfg, here)
+    emit(looped)
+    phases.append(looped)
+    phases.append(cli(here))
+    emit(phases[-1])
 
     a, ga = cases[0], gathers[0]
     emit({"kernels": [{
@@ -931,6 +1212,8 @@ def main() -> int:
         "replaces": "stable_nerf_tpu/ops/pallas/scatter_v2.py:125",
         "also_replaces": "stable_nerf_tpu/ops/pallas/scatter.py:113",
         "launches": joint["scatter_launches"],
+        "launches_by_path": {"joint_train": joint["scatter_launches"],
+                             "train_loop": looped["scatter_launches"]},
         "max_abs_err": a["kernel_vs_plain_max_abs"],
         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"], "library_ms": a["library_ms"],

@@ -7,11 +7,15 @@ find:
               composite with its closed-form backward; ops/hopper/ holds
               the wrappers of the hand-written CUDA kernels (sources in
               csrc/)
-  models/     NeRF network and renderer; SDXL VAE, U-Net with two-stream
+  models/     NeRF network, renderer and occupancy grid; SDXL VAE, U-Net with two-stream
               IP attention, DDIM scheduler
-  training/   the joint Stable-NeRF train step
-  data/, utils/  rays, losses, devices, parameter trees
+  training/   the joint Stable-NeRF train and eval steps, DDIM inference,
+              checkpoints and the training loop
+  data/       rays, the synthetic/tiny-NeRF loaders, the paired dataset,
+              device prefetch
+  utils/      losses, devices, parameter trees, timing, debug dumps
   convert.py  parameter trees to and from the JAX package's layout
+  train.py    the command line: python -m stable_nerf_tpu_torch.train
 
 Importing the package imports nothing: entry points live in the modules.
 """

@@ -62,6 +62,8 @@ class NeRFConfig:
     bound: float = 1.0
     density_scale: float = 1.0
     min_near: float = 0.2
+    # occupancy threshold cap of the grid refresh (models/nerf/grid.py)
+    density_thresh: float = 0.01
     grid_size: int = 128
     # table gradient through the hand-written scatter kernel on the card
     # (ops/hopper/scatter.py); positions then get a zero gradient
@@ -117,28 +119,56 @@ class SchedulerConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The joint step's training settings."""
+    """The joint step's and the training loop's settings."""
 
+    batch_size: int = 1
+    epochs: int = 500
+    # DDIM inference on the test split every N epochs (0 = never)
+    inference_every: int = 50
     lr: float = 1e-4
     weight_decay: float = 1e-4
     adam_b1: float = 0.9
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
     grad_accum_steps: int = 1
-    lr_schedule: str = "constant"        # only "constant" is ported
+    # constant | exponential | cosine; a decay runs over lr_decay_steps
+    # optimizer updates and ends at lr × lr_decay_factor
+    lr_schedule: str = "constant"
+    lr_decay_steps: int = 100_000
+    lr_decay_factor: float = 0.1
     # separate lr for the NeRF parameters (None = one lr for all)
     nerf_lr: Optional[float] = None
+    # seed of the data split, the shuffles and the inference draws
+    seed: int = 0
     max_steps_train: int = 256
     max_steps_eval: int = 512
     # background for unterminated rays: scalar or [channel_dim]
     bg_color: Any = 1.0
+    # DDIM steps of the inference denoise loop
+    num_inference_steps: int = 50
+    # resumable checkpoint every N epochs (0 = only at the end)
+    checkpoint_every: int = 50
+    # checkpoint only the trainable partition; the frozen one is rebuilt
+    # from (seed, frozen_dtype, trainable_scope), recorded in FORMAT.json
+    checkpoint_trainable_only: bool = False
+    log_every: int = 10
+    # validation every N epochs (and at the last one); 0 = never
+    val_every: int = 1
+    # probability of dumping a step's noisy latents / noise prediction to
+    # <workdir>/visualizations/ (0 disables the dumps)
+    vis_sample_prob: float = 0.0125
     # storage dtype of the frozen partition (None = float32); the step
     # computes in bf16 either way
     frozen_dtype: Optional[str] = None
     trainable_scope: str = "reference"   # reference | sd
     vae_encode: str = "sample"           # sample | mode
-    # DDIM steps of the inference denoise loop
-    num_inference_steps: int = 50
+    # static NeRF sample budget of a train step (None = dense lattice)
+    sample_budget: Optional[int] = None
+    # re-bucket the train budget from the occupancy at every grid refresh
+    sample_budget_auto: bool = False
+    # train the first N epochs with the one-corner stochastic encode, then
+    # the exact one (0 = no schedule)
+    stochastic_until_epoch: int = 0
     # eval-render sample budget (None: sample_budget_eval_per_ray per ray;
     # a per-ray value of 0 is the dense [N, max_steps_eval] lattice)
     sample_budget_eval: Optional[int] = None

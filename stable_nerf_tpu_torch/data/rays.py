@@ -6,6 +6,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -61,3 +62,18 @@ def rand_poses(generator: torch.Generator, size: int, radius: float = 1.0,
     poses[:, :3, :3] = torch.stack([right, up, forward], dim=-1)
     poses[:, :3, 3] = centers
     return poses
+
+
+def nerf_matrix_to_ngp(pose, scale: float = 0.33, offset=(0, 0, 0)) -> np.ndarray:
+    """NeRF → ngp pose convention: axis cycle and flip, translation × scale
+    (reference graphics_utils.py:129-137), on a [4, 4] (or [3, 4]) array."""
+    pose = np.asarray(pose)
+    return np.array(
+        [
+            [pose[1, 0], -pose[1, 1], -pose[1, 2], pose[1, 3] * scale + offset[0]],
+            [pose[2, 0], -pose[2, 1], -pose[2, 2], pose[2, 3] * scale + offset[1]],
+            [pose[0, 0], -pose[0, 1], -pose[0, 2], pose[0, 3] * scale + offset[2]],
+            [0, 0, 0, 1],
+        ],
+        dtype=np.float32,
+    )

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -228,15 +228,36 @@ def forward_iteration(params: Dict, grid_state: OccupancyGridState, batch: Dict,
     return sd_loss, nerf_loss, aux
 
 
+def lr_factor(cfg: TrainConfig) -> Callable[[int], float]:
+    """The lr multiplier after ``n`` optimizer updates: 1 for "constant";
+    ``optax.exponential_decay(lr, lr_decay_steps, lr_decay_factor)`` (not
+    staircase) or ``optax.cosine_decay_schedule(lr, lr_decay_steps,
+    alpha=lr_decay_factor)`` divided by lr."""
+    steps, factor = cfg.lr_decay_steps, cfg.lr_decay_factor
+    if cfg.lr_schedule == "constant":
+        return lambda n: 1.0
+    if cfg.lr_schedule == "exponential":
+        if steps <= 0 or factor == 0:       # optax's constant cases
+            return lambda n: 1.0
+        return lambda n: 1.0 if n <= 0 else factor ** (n / steps)
+    if cfg.lr_schedule == "cosine":
+        if not steps > 0:
+            raise ValueError(f"the cosine lr schedule needs lr_decay_steps > 0, "
+                             f"got {steps}")
+        return lambda n: ((1 - factor) * 0.5 * (1 + math.cos(math.pi * min(n, steps)
+                                                              / steps)) + factor)
+    raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r} "
+                     "(constant | exponential | cosine)")
+
+
 def make_optimizer(cfg: TrainConfig, params: Dict, mask: Dict) -> torch.optim.AdamW:
-    """AdamW (constant lr) over the trainable leaves of ``params``.
+    """AdamW over the trainable leaves of ``params``.
 
     Sets ``requires_grad`` on the trainable leaves and clears it on the
     frozen ones.  ``cfg.nerf_lr`` gives the NeRF leaves a param group of
-    their own.  Gradient accumulation is done by the train step."""
-    if cfg.lr_schedule != "constant":
-        raise NotImplementedError(
-            f"lr_schedule {cfg.lr_schedule!r} is not ported (constant only)")
+    their own.  Gradient accumulation is done by the train step; the lr
+    schedule by :func:`make_lr_scheduler` on this optimizer."""
+    lr_factor(cfg)                          # an unknown schedule raises here
     groups = {"sd": [], "nerf": []}
     for part in ("sd", "nerf"):
         for x, m in zip(tree_leaves(params[part]), tree_leaves(mask[part])):
@@ -253,6 +274,15 @@ def make_optimizer(cfg: TrainConfig, params: Dict, mask: Dict) -> torch.optim.Ad
                              eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
 
 
+def make_lr_scheduler(cfg: TrainConfig,
+                      optimizer: torch.optim.Optimizer) -> torch.optim.lr_scheduler.LambdaLR:
+    """``cfg.lr_schedule`` as a LambdaLR on ``optimizer``, counted in
+    optimizer updates: the first update uses the factor at 0, and the train
+    step advances it once per update (an accumulated step counts once),
+    as optax counts its schedule."""
+    return torch.optim.lr_scheduler.LambdaLR(optimizer, lr_factor(cfg))
+
+
 def check_batch_device(batch: Dict, dev: torch.device) -> None:
     """A step built for one device refuses a batch on another."""
     if batch["target_image"].device.type != dev.type:
@@ -262,24 +292,33 @@ def check_batch_device(batch: Dict, dev: torch.device) -> None:
 
 def make_train_step(cfg: JointConfig, scheduler: DDIMScheduler,
                     optimizer: torch.optim.Optimizer, *,
+                    lr_scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
                     sample_budget: Optional[int] = None,
-                    compute_dtype=torch.bfloat16,
+                    compute_dtype=torch.bfloat16, with_vis: bool = False,
                     device: Optional[torch.device] = None):
     """The joint train step: forward, backward into the trainable leaves,
     and an AdamW update every ``cfg.train.grad_accum_steps`` calls (the
-    mean of the accumulated gradients, as optax.MultiSteps).
+    mean of the accumulated gradients, as optax.MultiSteps), after which
+    ``lr_scheduler`` (from :func:`make_lr_scheduler`; required unless the
+    schedule is constant) advances.
 
     Returns ``step(params, grid_state, batch, generator=None, draws=None)``
     → {"loss", "sd_loss", "nerf_loss"} as 0-d tensors; params update in
-    place.  Runs on ``device`` (default cuda) and refuses a batch elsewhere.
+    place.  ``with_vis``: the step returns ``(metrics, {"latents": noisy
+    latents, "pred": noise prediction})``, the tensors the reference dumps
+    for inspection.  Runs on ``device`` (default cuda) and refuses a batch
+    elsewhere.
     """
     dev = resolve_device(device)
+    if lr_scheduler is None and cfg.train.lr_schedule != "constant":
+        raise ValueError(f"lr_schedule {cfg.train.lr_schedule!r} needs the "
+                         "lr_scheduler of make_lr_scheduler")
     accum = cfg.train.grad_accum_steps
     calls = [0]
 
     def step(params, grid_state, batch, generator=None, draws=None):
         check_batch_device(batch, dev)
-        sd_loss, nerf_loss, _ = forward_iteration(
+        sd_loss, nerf_loss, aux = forward_iteration(
             params, grid_state, batch, cfg, scheduler, train=True,
             compute_dtype=compute_dtype, sample_budget=sample_budget,
             generator=generator, draws=draws)
@@ -294,8 +333,14 @@ def make_train_step(cfg: JointConfig, scheduler: DDIMScheduler,
                             p.grad.div_(accum)
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
-        return {"loss": total.detach(), "sd_loss": sd_loss.detach(),
-                "nerf_loss": nerf_loss.detach()}
+            if lr_scheduler is not None:
+                lr_scheduler.step()
+        metrics = {"loss": total.detach(), "sd_loss": sd_loss.detach(),
+                   "nerf_loss": nerf_loss.detach()}
+        if with_vis:
+            return metrics, {"latents": aux["noisy_latents"].detach(),
+                             "pred": aux["noise_pred"].detach()}
+        return metrics
 
     return step
 

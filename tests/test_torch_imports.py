@@ -40,10 +40,13 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert out.returncode == 0, out.stderr
     first, names = out.stdout.strip().split("\n")
     n, bad = first.split(" ", 1)
-    assert int(n) >= 32
+    assert int(n) >= 42
     assert bad.strip() == "[]", bad
     for mod in ("ops.compaction", "ops.ssim", "ops.hopper.gather",
-                "training.inference", "utils.losses"):
+                "training.inference", "utils.losses", "ops.morton",
+                "data.preprocess", "data.dataset", "data.prefetch",
+                "utils.profiling", "utils.visualization",
+                "training.checkpoints", "training.loop", "train"):
         assert f"stable_nerf_tpu_torch.{mod}" in names.split(), mod
 
 
@@ -53,9 +56,13 @@ def _entry_points():
     from stable_nerf_tpu_torch.models.diffusion.sd_network import sd_network_init
     from stable_nerf_tpu_torch.models.nerf.grid import grid_init
     from stable_nerf_tpu_torch.models.nerf.network import nerf_init
+    from stable_nerf_tpu_torch import train as cli
+    from stable_nerf_tpu_torch.data.prefetch import device_prefetch
+    from stable_nerf_tpu_torch.models.nerf.grid import reset_extra_state
     from stable_nerf_tpu_torch.training.inference import make_inference_step
     from stable_nerf_tpu_torch.training.joint import (JointConfig, make_eval_step,
                                                       make_train_step)
+    from stable_nerf_tpu_torch.training.loop import build_initial_params, train
 
     return {
         "nerf_init": lambda: nerf_init(0, NeRFConfig()),
@@ -65,12 +72,18 @@ def _entry_points():
         "make_train_step": lambda: make_train_step(JointConfig(), None, None),
         "make_eval_step": lambda: make_eval_step(JointConfig(), None),
         "make_inference_step": lambda: make_inference_step(JointConfig(), None),
+        "reset_extra_state": lambda: reset_extra_state(NeRFConfig()),
+        "train": lambda: train(JointConfig(), None),
+        "build_initial_params": lambda: build_initial_params(JointConfig(), 0, 1),
+        "device_prefetch": lambda: next(device_prefetch(iter([{}]))),
+        "cli": lambda: cli.main(["--tiny", "--dataset", "synthetic"]),
     }
 
 
 @pytest.mark.parametrize("name", ["nerf_init", "sd_network_init", "grid_init",
                                   "scheduler", "make_train_step", "make_eval_step",
-                                  "make_inference_step"])
+                                  "make_inference_step", "reset_extra_state", "train",
+                                  "build_initial_params", "device_prefetch", "cli"])
 def test_entry_points_default_to_cuda_and_refuse_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")

@@ -220,4 +220,4 @@ def test_new_train_config_fields_convert():
     assert (t.num_inference_steps, t.sample_budget_eval_auto,
             t.sample_budget_eval_per_ray) == (7, False, 8)
     with pytest.raises(TypeError, match="is not ported"):
-        convert.config_from_jax(dataclasses.replace(jcfg.train, sample_budget_auto=True))
+        convert.config_from_jax(dataclasses.replace(jcfg.train, mixed_precision="float32"))

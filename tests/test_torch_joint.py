@@ -316,14 +316,15 @@ def test_losses(rng):
 
 
 @pytest.mark.parametrize("field,cls", [
-    ("epochs", "train"), ("remat", "unet"), ("bg_radius", "nerf")])
+    ("mixed_precision", "train"), ("remat", "unet"), ("bg_radius", "nerf")])
 def test_config_conversion_refuses_unported_settings(field, cls):
     """A reference setting the port does not have converts only at its
     default, so a configuration is never silently changed."""
     jcfg = _tiny_joint_config()
     assert convert.config_from_jax(jcfg).train.max_steps_train == 32
     sub = {"train": jcfg.train, "unet": jcfg.sd.unet, "nerf": jcfg.nerf}[cls]
-    changed = dataclasses.replace(sub, **{field: {"epochs": 7, "remat": True,
+    changed = dataclasses.replace(sub, **{field: {"mixed_precision": "float32",
+                                                  "remat": True,
                                                   "bg_radius": 2.0}[field]})
     with pytest.raises(TypeError, match=f"{field} = .* is not ported"):
         convert.config_from_jax(changed)

@@ -64,6 +64,35 @@ def test_hot_row_and_padding_dropped():
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("T", [8192, 4096])
+def test_negative_rows_dropped_as_the_pallas_kernel_drops_them(rng, T):
+    """Rows below 0 are dropped by the TPU kernel K1 (sorted_block_scatter_add_v2)
+    exactly as by the port; only JAX's XLA route wraps them (row −5 lands
+    on T − 5 there).  Negative, in-range and padding (≥ T) rows together,
+    equal to 1e-6: the updates are multiples of 1/4 that bf16 holds
+    exactly, so the kernel's hi/lo bf16 split sums them without error."""
+    F = 2
+    idx = np.concatenate([[-5, -1, -T, 3, 3, 100, T - 1, T, T + 808],
+                          rng.integers(-64, T + 64, 2000)]).astype(np.int32)
+    upd = (rng.integers(-16, 17, (idx.size, F)) / 4).astype(np.float32)
+    upd[0] = [100.0, -100.0]                 # the row −5 update, large
+    want = np.asarray(sorted_block_scatter_add_v2(*_sorted(idx, upd), T, interpret=True))
+    got = _port_flat(idx, upd, T)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    kept = (idx >= 0) & (idx < T)
+    np.testing.assert_allclose(got, _port_flat(idx[kept], upd[kept], T), rtol=1e-6,
+                               atol=1e-6)
+    # the XLA route differs from both by the negative rows, wrapped by T
+    xla = np.asarray(jax_per_level(jnp.asarray(idx).reshape(-1, 1, 1),
+                                   jnp.asarray(upd).reshape(-1, 1, 1, F), 1, T,
+                                   use_pallas=False))
+    neg = idx < 0
+    wrapped = np.zeros_like(got)
+    np.add.at(wrapped, idx[neg] + T, upd[neg])
+    np.testing.assert_allclose(xla - got, wrapped, rtol=1e-6, atol=1e-6)
+    assert np.abs(wrapped[T - 5]).max() >= 100.0
+
+
 def test_block_boundaries():
     T, F = 8192, 2
     idx = np.asarray([0, 4095, 4096, 4097, 8191], np.int32)
