@@ -53,8 +53,21 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                epoch.  Per epoch: steps, wall, refresh ms, occupied fraction,
                scatter launches (16 a dense exact step); checkpoint bytes and
                seconds, restore seconds, peak memory;
+  pretrained   a full-width SDXL directory (U-Net, VAE, CLIP-L and bigG
+               text towers, float16, seed 7) written through the port's
+               safetensors writer; precheck, fingerprint and load_sdxl
+               timed (GB/s, peak host RSS); the empty-prompt conditioning
+               on the card against the CPU; build_initial_params with the
+               weights, every frozen leaf checked bit for bit against the
+               exported values; device peaks with and without the weights;
   cli          python -m stable_nerf_tpu_torch.train --tiny on the synthetic
-               scene for one epoch, then --inference on its workdir.
+               scene for one epoch, then --inference on its workdir; then
+               at full width, --dataset objaverse (10 objects of RGBA 512²
+               PNGs written by this script) with --sdxl-checkpoint (the
+               pretrained phase's directory) for one epoch, then
+               --inference: load seconds an object, steps, scatter
+               launches (16 a dense step), PSNR.  The SDXL directory and
+               the data are removed at the end.
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last the device
 line ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
 
@@ -88,6 +101,8 @@ SERVE_BATCH = 2
 SEED = 0
 SCATTER_RUN = 16         # kRun of csrc/hash_scatter.cu: samples a thread walks
 LOOP_SCENES = 10         # scenes of the training loop's run: an 8 / 1 / 1 split
+PRETRAINED_SEED = 7      # the written SDXL weights: not the loop's seed
+OBJAVERSE_OBJECTS = 10   # objects of the CLI's objaverse run: an 8 / 1 / 1 split
 
 
 def emit(obj) -> None:
@@ -122,6 +137,96 @@ def cuda_ms(fn, reps: int, queued: bool = False) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def clip_text_state_dict(params):
+    """A CLIP text tower's tree → its HF transformers state dict (the
+    inverse of ``clip_text.params_from_hf_state_dict``; linears back to
+    [out, in], as views)."""
+    sd = {}
+    p = "text_model."
+
+    def lin(name, q):
+        sd[name + ".weight"] = q["kernel"].T
+        sd[name + ".bias"] = q["bias"]
+
+    def ln(name, q):
+        sd[name + ".weight"] = q["scale"]
+        sd[name + ".bias"] = q["bias"]
+
+    for i, layer in enumerate(params["layers"]):
+        lp = f"{p}encoder.layers.{i}."
+        ln(lp + "layer_norm1", layer["ln1"])
+        for key, name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                          ("out", "out_proj")):
+            lin(f"{lp}self_attn.{name}", layer[key])
+        ln(lp + "layer_norm2", layer["ln2"])
+        lin(lp + "mlp.fc1", layer["fc1"])
+        lin(lp + "mlp.fc2", layer["fc2"])
+    sd[p + "embeddings.token_embedding.weight"] = params["token_embedding"]
+    sd[p + "embeddings.position_embedding.weight"] = params["position_embedding"]
+    ln(p + "final_layer_norm", params["final_ln"])
+    if "text_projection" in params:
+        sd["text_projection.weight"] = params["text_projection"].T
+    return sd
+
+
+def write_sdxl_checkpoint(directory, state_dicts, dtype=None):
+    """Write {"unet" | "vae" | "text_encoder" | "text_encoder_2": state
+    dict} as an SDXL directory in the HF hub layout, through the port's
+    safetensors writer, each tensor stored in ``dtype`` (None: its own)."""
+    from stable_nerf_tpu_torch.utils.safetensors import save_file
+
+    names = {"unet": "diffusion_pytorch_model.safetensors",
+             "vae": "diffusion_pytorch_model.safetensors",
+             "text_encoder": "model.safetensors", "text_encoder_2": "model.safetensors"}
+    for sub, sd in state_dicts.items():
+        os.makedirs(os.path.join(directory, sub), exist_ok=True)
+        save_file(sd, os.path.join(directory, sub, names[sub]), dtype=dtype)
+
+
+def png_bytes(pixels) -> bytes:
+    """[H, W, 3 | 4] uint8 → an 8-bit RGB(A) PNG: one IDAT, filter 0 on
+    every row (the card's machine has no PIL)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, c = pixels.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), pixels.reshape(h, w * c)], axis=1)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, {3: 2, 4: 6}[c], 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_objaverse(root, n_objects, size, views=12):
+    """``root/objaverse/views_release`` in Objaverse's layout: ``n_objects``
+    directories of ``views`` RGBA PNGs (alpha 255) and blender poses
+    (``NNN.png``, ``NNN.npy``), cut from the committed synthetic scene's
+    views and poses in turn, resized to ``size``²."""
+    import numpy as np
+
+    from stable_nerf_tpu_torch.data.preprocess import resize_bilinear_uint8
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    scene = np.load(os.path.join(here, "datasets", "nerf", "synthetic_spheres.npz"))
+    rgb = resize_bilinear_uint8((np.clip(scene["images"], 0, 1) * 255).astype(np.uint8),
+                                (size, size))
+    rgba = np.concatenate([rgb, np.full(rgb.shape[:3] + (1,), 255, np.uint8)], axis=-1)
+    for o in range(n_objects):
+        d = os.path.join(root, "objaverse", "views_release", f"object_{o:03d}")
+        os.makedirs(d, exist_ok=True)
+        for v in range(views):
+            i = (o * views + v) % len(rgba)
+            with open(os.path.join(d, f"{v:03d}.png"), "wb") as f:
+                f.write(png_bytes(rgba[i]))
+            np.save(os.path.join(d, f"{v:03d}.npy"), scene["poses"][i])
 
 
 def scatter_case(name, idx, upd, n_levels, table_size, payload_bf16, reps):
@@ -1014,25 +1119,231 @@ def train_loop(dev, cfg, here):
     return row
 
 
-def cli(here):
-    """``python -m stable_nerf_tpu_torch.train`` on the card: a tiny one-epoch
-    run over the synthetic scene, then ``--inference`` on its workdir."""
-    import glob
+def host_rss_peak() -> int:
+    """This process's peak resident set so far, bytes (``ru_maxrss``)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def sdxl_state_dicts(cfg, dev, seed):
+    """A full-width SDXL directory's state dicts, drawn from ``seed``: the
+    U-Net without IP heads (stock SDXL), the VAE and both CLIP text towers,
+    in diffusers / transformers naming, on the card."""
+    from stable_nerf_tpu_torch.models.diffusion import clip_text, weights
+    from stable_nerf_tpu_torch.models.diffusion.sd_network import sd_network_init
+
+    sd = sd_network_init(seed, cfg.sd, device=dev)
+    return {"unet": weights.export_unet_state_dict(sd["unet"], cfg.sd.unet, include_ip=False),
+            "vae": weights.export_vae_state_dict(sd["vae"], cfg.sd.vae),
+            "text_encoder": clip_text_state_dict(clip_text.clip_text_init(
+                seed + 1, clip_text.clip_l_config(), device=dev)),
+            "text_encoder_2": clip_text_state_dict(clip_text.clip_text_init(
+                seed + 2, clip_text.open_clip_bigg_config(), device=dev))}
+
+
+def pretrained(dev, cfg, ckpt_dir):
+    """The pretrained-weights path at full width: write an SDXL directory
+    (U-Net, VAE, CLIP-L and bigG text towers; float16, seed 7, not the
+    loop's seed 0) through the port's writer; time the header precheck,
+    the fingerprint and ``load_sdxl`` onto the host (peak host RSS); run
+    the empty-prompt conditioning on the card and on the CPU; build the
+    joint params with the weights.  Every frozen leaf must equal the
+    exported value rounded float16 → float32 → bfloat16 bit for bit, the
+    IP heads the exported to_k/to_v in float32; the frozen leaves must
+    differ from the seed-0 init's; the device peaks of the build with and
+    without the weights are reported.  The directory stays for the cli
+    phase.
+
+    Tolerance of the conditioning, card against CPU: 1e-4 of each
+    output's largest magnitude (float32 sums in other orders through 12
+    and 32 layers)."""
     import shutil
+
+    import torch
+
+    from stable_nerf_tpu_torch.models.diffusion import clip_text, weights
+    from stable_nerf_tpu_torch.training import loop
+    from stable_nerf_tpu_torch.training.joint import joint_trainable_mask
+    from stable_nerf_tpu_torch.utils.tree import partition, tree_map
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    parts = sdxl_state_dicts(cfg, dev, PRETRAINED_SEED)
+    n_params = {k: sum(v.numel() for v in sd.values()) for k, sd in parts.items()}
+    write_sdxl_checkpoint(ckpt_dir, parts, dtype=torch.float16)
+    write_s = time.perf_counter() - t
+    del parts
+    torch.cuda.empty_cache()
+
+    # load onto the host, as the CLI does
+    rss_before = host_rss_peak()
+    t = time.perf_counter()
+    has_ip = weights.precheck_sdxl_checkpoint(ckpt_dir, cfg.sd.unet, cfg.sd.vae)
+    precheck_s = time.perf_counter() - t
+    t = time.perf_counter()
+    fp = weights.checkpoint_fingerprint(ckpt_dir)
+    fingerprint_s = time.perf_counter() - t
+    t = time.perf_counter()
+    pre = weights.load_sdxl(ckpt_dir, with_ip=has_ip, unet_cfg=cfg.sd.unet,
+                            vae_cfg=cfg.sd.vae, device="cpu")
+    load_s = time.perf_counter() - t
+    rss_peak = host_rss_peak()
+
+    # the empty-prompt conditioning: card (second call timed) against CPU
+    towers = [tree_map(lambda x: x.to(dev), pre[k]) for k in ("text_encoder", "text_encoder_2")]
+    cond_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card = clip_text.make_empty_prompt_conditioning(*towers)
+        torch.cuda.synchronize()
+        cond_ms.append((time.perf_counter() - t) * 1e3)
+    del towers
+    t = time.perf_counter()
+    host = clip_text.make_empty_prompt_conditioning(pre["text_encoder"], pre["text_encoder_2"])
+    cond_cpu_s = time.perf_counter() - t
+    cond_err = [float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(card, host)]
+
+    # the joint params without, then with, the weights
+    def frozen_sums(params):
+        """{path: Σ|x|} of the frozen leaves."""
+        mask = joint_trainable_mask(params, cfg.train.trainable_scope)
+        leaves = [(p, x) for p, x in weights._leaves_with_path(partition(params, mask)[1])
+                  if x is not None]
+        sums = torch.stack([x.double().abs().sum() for _, x in leaves]).tolist()
+        return dict(zip([p for p, _ in leaves], sums))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = loop.build_initial_params(cfg, SEED, SEED + 1, device=dev)
+    torch.cuda.synchronize()
+    build_random_s = time.perf_counter() - t
+    peak_random = torch.cuda.max_memory_allocated(dev)
+    random_sums = frozen_sums(params)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    logs = []
+    t = time.perf_counter()
+    params = loop.build_initial_params(cfg, SEED, SEED + 1, pre, device=dev,
+                                       log_fn=logs.append)
+    torch.cuda.synchronize()
+    build_pretrained_s = time.perf_counter() - t
+    peak_pretrained = torch.cuda.max_memory_allocated(dev)
+    del pre
+
+    # every frozen leaf against the exported values, drawn again from the seed
+    sd = params["sd"]
+    ref = sdxl_state_dicts(cfg, dev, PRETRAINED_SEED)
+    got = {"unet": weights.export_unet_state_dict(sd["unet"], cfg.sd.unet),
+           "vae": weights.export_vae_state_dict(sd["vae"], cfg.sd.vae)}
+    checked, mismatched = 0, []
+    for part in ("unet", "vae"):
+        for key, value in got[part].items():
+            base = key.replace("to_k_ip", "to_k").replace("to_v_ip", "to_v")
+            want = ref[part][base].to(torch.float16).float()
+            if value.dtype == torch.bfloat16:
+                want = want.to(torch.bfloat16)
+            checked += 1
+            if value.dtype != want.dtype or not torch.equal(value, want):
+                mismatched.append(f"{part}/{key}")
+    del ref, got
+    pooled_err = float((sd["add_text_embeds"].float() - card[1]).abs().max()
+                       / card[1].abs().max())
+    loaded_sums = frozen_sums(params)
+    # every random leaf (a kernel) must differ from the seed-0 init's; norm
+    # scales and zero biases are equal in any init
+    kernels = [p for p in loaded_sums if p.endswith("['kernel']")]
+    same = [p for p in kernels if loaded_sums[p] == random_sums[p]]
+    del params, sd
+    torch.cuda.empty_cache()
+
+    total = fp["total_bytes"]
+    row = {
+        "phase": "pretrained", "seed": PRETRAINED_SEED, "dtype": "float16",
+        "parameters": n_params, "files": fp["n_files"], "bytes": total, "has_ip": has_ip,
+        "write_s": write_s, "precheck_s": precheck_s, "fingerprint_s": fingerprint_s,
+        "load_s": load_s, "load_gb_per_s": total / load_s / 1e9,
+        "host_rss_peak_before_load": rss_before, "host_rss_peak_after_load": rss_peak,
+        "conditioning_ms_card": cond_ms, "conditioning_s_cpu": cond_cpu_s,
+        "conditioning_rel_err": cond_err, "conditioning_tolerance": 1e-4,
+        "add_text_embeds_rel_err_bf16": pooled_err,
+        "build_s": {"random": build_random_s, "pretrained": build_pretrained_s},
+        "max_memory_allocated": {"random": peak_random, "pretrained": peak_pretrained},
+        "leaves_checked": checked, "leaves_mismatched": mismatched[:10],
+        "frozen_leaves": len(loaded_sums), "frozen_kernels": len(kernels),
+        "frozen_kernels_equal_to_seed0": same[:10],
+        "log": logs, "fingerprint": fp["digest"],
+    }
+    row["ok"] = bool(
+        not has_ip and checked > 2000 and not mismatched and max(cond_err) <= 1e-4
+        and pooled_err <= 2 ** -7
+        and len(kernels) > 500 and not same and card[1].abs().max() > 0)
+    return row
+
+
+CLI_RUNNER = """
+import json, runpy, sys
+from stable_nerf_tpu_torch.ops.hopper.scatter import hash_scatter_add_per_level
+sys.argv = ["stable_nerf_tpu_torch.train"] + sys.argv[1:]
+hash_scatter_add_per_level.launches = 0
+try:
+    runpy.run_module("stable_nerf_tpu_torch.train", run_name="__main__", alter_sys=True)
+finally:
+    import torch
+    print(json.dumps({"cli_counts": {
+        "scatter_launches": hash_scatter_add_per_level.launches,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()
+        if torch.cuda.is_available() else None}}), flush=True)
+"""
+
+
+def run_cli(here, argv, timeout):
+    """``python -m stable_nerf_tpu_torch.train ARGV`` in a process of its own,
+    with the scatter kernel's launch count set to 0 before and read after
+    (and the process's peak device memory; not its peak host RSS, which
+    Linux carries over from this process across the exec).  Returns (row,
+    stdout)."""
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", CLI_RUNNER, *argv], cwd=here,
+                         capture_output=True, text=True, timeout=timeout)
+    lines = out.stdout.strip().splitlines()
+    counts = next((json.loads(line)["cli_counts"] for line in reversed(lines)
+                   if line.startswith('{"cli_counts"')), {})
+    if out.returncode:
+        print(out.stdout[-4000:] + out.stderr[-4000:], file=sys.stderr)
+    return {"rc": out.returncode, "s": time.perf_counter() - t, **counts,
+            "tail": [line for line in lines if not line.startswith('{"cli_counts"')][-3:]
+            }, out.stdout
+
+
+def cli(here, ckpt_dir):
+    """``python -m stable_nerf_tpu_torch.train`` on the card.  (1) A tiny
+    one-epoch run over the synthetic scene, then ``--inference`` on its
+    workdir.  (2) At full width: a synthetic ``objaverse/views_release``
+    (10 objects of 12 RGBA 512² PNGs and poses, cut from the committed
+    synthetic scene) and the ``pretrained`` phase's SDXL directory, one
+    epoch with ``--sdxl-checkpoint --frozen-bf16
+    --checkpoint-trainable-only``, then ``--inference`` with the same
+    checkpoint: the objaverse load's seconds an object, the epoch's steps,
+    the scatter launches (16 a dense step), the inference's PSNR (finite;
+    seeded weights make its value meaningless)."""
+    import glob
+    import re
+    import shutil
+
+    import torch
 
     workdir = os.path.join(here, "chiprun_out", "cli")
     shutil.rmtree(workdir, ignore_errors=True)
-    common = [sys.executable, "-m", "stable_nerf_tpu_torch.train", "--tiny", "--dataset",
-              "synthetic", "--image-size", "32", "--latent-size", "16", "--workdir", workdir]
-    runs = {}
-    for name, extra in (("train", ["--epochs", "1"]), ("inference", ["--inference"])):
-        t = time.perf_counter()
-        out = subprocess.run(common + extra, cwd=here, capture_output=True, text=True,
-                             timeout=600)
-        runs[name] = {"rc": out.returncode, "s": time.perf_counter() - t,
-                      "tail": out.stdout.strip().splitlines()[-3:]}
-        if out.returncode:
-            print(out.stdout[-4000:] + out.stderr[-4000:], file=sys.stderr)
+    common = ["--tiny", "--dataset", "synthetic", "--image-size", "32", "--latent-size", "16",
+              "--workdir", workdir]
+    runs = {name: run_cli(here, common + extra, timeout=600)[0]
+            for name, extra in (("train", ["--epochs", "1"]), ("inference", ["--inference"]))}
     renders = sorted(os.path.basename(p) for p in
                      glob.glob(os.path.join(workdir, "renders", "denoised_*")))
     row = {"phase": "cli", "runs": runs, "metrics_jsonl": os.path.exists(
@@ -1040,8 +1351,48 @@ def cli(here):
            "checkpoints": sorted(os.listdir(os.path.join(workdir, "checkpoints")))
            if os.path.isdir(os.path.join(workdir, "checkpoints")) else [],
            "renders": renders}
-    row["ok"] = bool(all(r["rc"] == 0 for r in runs.values()) and row["metrics_jsonl"]
-                     and row["checkpoints"] and renders)
+    tiny_ok = bool(all(r["rc"] == 0 for r in runs.values()) and row["metrics_jsonl"]
+                   and row["checkpoints"] and renders)
+
+    # full width: objaverse-layout data and the pretrained SDXL directory
+    data = os.path.join(here, "chiprun_out", "datasets")
+    full_dir = os.path.join(here, "chiprun_out", "cli_objaverse")
+    shutil.rmtree(full_dir, ignore_errors=True)
+    shutil.rmtree(data, ignore_errors=True)
+    t = time.perf_counter()
+    write_objaverse(data, OBJAVERSE_OBJECTS, 512)
+    write_s = time.perf_counter() - t
+    argv = ["--dataset", "objaverse", "--data-root", data, "--percent-objects", "1",
+            "--sdxl-checkpoint", ckpt_dir, "--frozen-bf16", "--checkpoint-trainable-only",
+            "--epochs", "1", "--workdir", full_dir, "--seed", str(SEED)]
+    (full_train, train_log), (full_infer, infer_log) = (
+        run_cli(here, argv + extra, timeout=900) for extra in ([], ["--inference"]))
+    full = {"train": full_train, "inference": full_infer}
+    loaded = re.search(r"dataset: (\d+) paired samples in ([\d.]+) s", train_log)
+    epoch = re.search(r"epoch 0: train \S+ val \S+ \(\d+ rays/s, (\d+) steps in ([\d.]+) s\)",
+                      train_log)
+    psnr = [float(v) for v in re.findall(r"PSNR (\S+)", infer_log)]
+    steps = int(epoch.group(1)) if epoch else 0
+    n_loaded = int(loaded.group(1)) if loaded else 0
+    load_s = float(loaded.group(2)) if loaded else math.nan
+    row["objaverse"] = {
+        "objects": OBJAVERSE_OBJECTS, "png_side": 512, "write_s": write_s,
+        "objects_loaded": n_loaded, "load_s": load_s,
+        "load_s_per_object": load_s / max(n_loaded, 1),
+        "loader_threads": min(32, (os.cpu_count() or 1) + 4),
+        "epoch_steps": steps, "epoch_train_s": float(epoch.group(2)) if epoch else None,
+        "expected_launches": 16 * steps, "psnr": psnr,
+        "runs": full,
+        "sdxl_log": [line for line in train_log.splitlines() if "SDXL" in line
+                     or "conditioning" in line],
+    }
+    full_ok = bool(all(r["rc"] == 0 for r in full.values()) and n_loaded == OBJAVERSE_OBJECTS
+                   and steps > 0 and full["train"].get("scatter_launches") == 16 * steps
+                   and psnr and all(math.isfinite(p) for p in psnr))
+    row["ok"] = tiny_ok and full_ok
+    shutil.rmtree(data, ignore_errors=True)
+    shutil.rmtree(full_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
     return row
 
 
@@ -1152,12 +1503,20 @@ def main() -> int:
     dev = resolve_device()
     smi = nvidia_smi()
     t = time.perf_counter()
+    native = None
+    if not args.scatter_bench:
+        from stable_nerf_tpu_torch.data import native_loader
+
+        native = os.path.basename(native_loader.build())    # g++ and zlib, or raise
+    native_s = time.perf_counter() - t
+    t = time.perf_counter()
     reports = build.build(build.kernel_sources())
     build_s = time.perf_counter() - t
     for name, log in reports.items():
         print(f"ptxas report for csrc/{name}.cu:\n{log}", file=sys.stderr)
     emit({"phase": "card", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
+          "native_loader": native, "native_loader_build_s": native_s,
           "kernel_build_s": build_s, "kernels_built": sorted(reports),
           "tf32": [torch.backends.cuda.matmul.allow_tf32,
                    torch.backends.cudnn.allow_tf32]})
@@ -1202,8 +1561,18 @@ def main() -> int:
     looped = train_loop(dev, cfg, here)
     emit(looped)
     phases.append(looped)
-    phases.append(cli(here))
-    emit(phases[-1])
+    ckpt_dir = os.path.join(here, "chiprun_out", "sdxl_checkpoint")
+    try:
+        phases.append(pretrained(dev, cfg, ckpt_dir))
+        emit(phases[-1])
+        phases.append(cli(here, ckpt_dir))
+        emit(phases[-1])
+    finally:
+        # ~6.9 GB: never left behind
+        import shutil
+
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cli_row = phases[-1]
 
     a, ga = cases[0], gathers[0]
     emit({"kernels": [{
@@ -1213,7 +1582,9 @@ def main() -> int:
         "also_replaces": "stable_nerf_tpu/ops/pallas/scatter.py:113",
         "launches": joint["scatter_launches"],
         "launches_by_path": {"joint_train": joint["scatter_launches"],
-                             "train_loop": looped["scatter_launches"]},
+                             "train_loop": looped["scatter_launches"],
+                             "cli_objaverse_pretrained":
+                                 cli_row["objaverse"]["runs"]["train"].get("scatter_launches")},
         "max_abs_err": a["kernel_vs_plain_max_abs"],
         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"], "library_ms": a["library_ms"],

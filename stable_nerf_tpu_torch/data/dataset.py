@@ -59,7 +59,8 @@ class StableNeRFDataset:
 
         images, poses, norm_intrinsic = load_data(
             dataset=dataset_name, shape=shape, mean=mean, std=std,
-            fix_choices=fix_choices, percent_objects=percent_objects, root=root)
+            fix_choices=fix_choices, percent_objects=percent_objects, root=root,
+            seed=seed)
         images = np.asarray(images, np.float32)
         poses = np.asarray(poses, np.float32)
 

@@ -20,9 +20,23 @@ import torch.nn.functional as F
 
 
 def uniform(generator: torch.Generator, shape, scale: float) -> torch.Tensor:
-    """U(-scale, scale) float32 tensor on the generator's device."""
+    """U(-scale, scale) float32 tensor on the generator's device.  A
+    generator on the ``meta`` device (``META_GENERATOR``) draws nothing:
+    the result only has the shape, as a template needs."""
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    if t.is_meta:
+        return t
     return t.uniform_(-scale, scale, generator=generator)
+
+
+class _MetaGenerator:
+    """Stands for a ``torch.Generator`` in the init functions, which read
+    only its ``device``: they then build shape-only trees at no memory."""
+
+    device = torch.device("meta")
+
+
+META_GENERATOR = _MetaGenerator()
 
 
 def conv2d(p: Dict, x: torch.Tensor, stride: int = 1, padding: int = 1) -> torch.Tensor:

@@ -4,6 +4,7 @@ more, ``--device``).
 
 Usage:
   python -m stable_nerf_tpu_torch.train --dataset synthetic     # train
+  python -m stable_nerf_tpu_torch.train --sdxl-checkpoint DIR   # objaverse, real SDXL
   python -m stable_nerf_tpu_torch.train --inference --workdir X # restore + DDIM
   python -m stable_nerf_tpu_torch.train --tiny --dataset synthetic \\
       --image-size 32 --latent-size 16 --device cpu              # smoke run
@@ -18,6 +19,7 @@ import argparse
 import dataclasses
 import os
 import sys
+import time
 
 NOT_PORTED = {
     "--data-parallel": "parallel/",
@@ -27,7 +29,6 @@ NOT_PORTED = {
     "--distributed": "parallel/",
     "--coordinator": "parallel/",
     "--remat": "parallel/ (U-Net remat)",
-    "--sdxl-checkpoint": "CLIP, the tokenizer and weights.py",
     "--demo": "the other scripts/ (the demo preset and its tiny VAE)",
     "--vae-checkpoint": "the other scripts/ (the demo preset and its tiny VAE)",
 }
@@ -66,7 +67,8 @@ def build_parser():
     p.add_argument("--num-inference-steps", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--sdxl-checkpoint", default=None,
-                   help="SDXL checkpoint dir (HF layout); not ported yet")
+                   help="SDXL checkpoint dir (HF hub layout: unet/, vae/, text_encoder/, "
+                        "text_encoder_2/ with safetensors or bin files)")
     p.add_argument("--sample-budget", default=None,
                    help="NeRF sample budget per step: an int (static), 'auto' "
                         "(re-bucketed at each occupancy refresh), or omitted for "
@@ -137,7 +139,6 @@ def _refused_flags(args) -> list:
         "--distributed": args.distributed,
         "--coordinator": args.coordinator is not None,
         "--remat": args.remat,
-        "--sdxl-checkpoint": args.sdxl_checkpoint is not None,
         "--demo": args.demo,
         "--vae-checkpoint": args.vae_checkpoint is not None,
     }
@@ -227,32 +228,60 @@ def main(argv=None):
 
     print(f"workdir: {workdir}")
     print("loading dataset…")
-    try:
-        dataset = StableNeRFDataset(args.dataset, shape=args.image_size,
-                                    encoded_shape=args.latent_size,
-                                    percent_objects=args.percent_objects,
-                                    root=args.data_root, seed=args.seed)
-    except NotImplementedError as e:       # the objaverse loader
-        sys.exit(f"not ported yet: --dataset {args.dataset}: {e}")
-    print(f"dataset: {len(dataset)} paired samples")
+    t0 = time.perf_counter()
+    dataset = StableNeRFDataset(args.dataset, shape=args.image_size,
+                                encoded_shape=args.latent_size,
+                                percent_objects=args.percent_objects,
+                                root=args.data_root, seed=args.seed)
+    print(f"dataset: {len(dataset)} paired samples in {time.perf_counter() - t0:.3f} s")
+
+    pretrained = fingerprint = None
+    if args.sdxl_checkpoint:
+        from .models.diffusion.weights import (checkpoint_fingerprint, load_sdxl,
+                                               precheck_sdxl_checkpoint)
+
+        # the checkpoint's key/shape headers against the converters' exact
+        # expectations, before any tensor is read
+        has_ip = precheck_sdxl_checkpoint(args.sdxl_checkpoint, cfg.sd.unet, cfg.sd.vae)
+        # content identity recorded in FORMAT.json: trainable-only
+        # checkpoints rebuild the frozen partition from this directory
+        fingerprint = checkpoint_fingerprint(args.sdxl_checkpoint)
+        print(f"loading SDXL weights from {args.sdxl_checkpoint} "
+              f"(digest {fingerprint['digest'][:12]}…)")
+        t0 = time.perf_counter()
+        # host memory: build_initial_params copies the leaves to the card
+        # one at a time, and clones the IP heads there from to_k/to_v, so
+        # none are cloned here
+        pretrained = load_sdxl(args.sdxl_checkpoint, with_ip=has_ip, unet_cfg=cfg.sd.unet,
+                               vae_cfg=cfg.sd.vae, device="cpu")
+        print(f"loaded {fingerprint['total_bytes']} bytes of SDXL weights in "
+              f"{time.perf_counter() - t0:.3f} s")
 
     if args.inference:
         run_inference(cfg, dataset, workdir, guidance_scale=args.guidance_scale,
-                      save_attn_maps=args.save_attn_maps, device=dev)
+                      save_attn_maps=args.save_attn_maps, pretrained=pretrained,
+                      fingerprint=fingerprint, device=dev)
         return
 
     from .training.loop import train
 
     train(cfg, dataset, workdir=workdir, seed=args.seed, profile_dir=args.profile_dir,
-          resume=args.resume, device=dev)
+          resume=args.resume, pretrained_sd=pretrained,
+          pretrained_fingerprint=fingerprint, device=dev)
 
 
 def run_inference(cfg, dataset, workdir, guidance_scale: float = 1.0,
-                  save_attn_maps: bool = False, device=None):
+                  save_attn_maps: bool = False, pretrained=None, fingerprint=None,
+                  device=None):
     """Restore the latest checkpoint under ``workdir`` and run the DDIM
     novel-view inference on the test split (batches of 2), writing the
     denoised and target views (PNG, or .npy without PIL) and, on request,
-    the ip-stream attention maps to ``workdir/renders``."""
+    the ip-stream attention maps to ``workdir/renders``.
+
+    A trainable-only checkpoint rebuilds its frozen partition from
+    ``pretrained`` (``load_sdxl``'s dict) and is refused when it was
+    trained with another ``--sdxl-checkpoint`` (``fingerprint``), or with
+    one where this run has none, or the other way round."""
     import numpy as np
     import torch
 
@@ -277,14 +306,29 @@ def run_inference(cfg, dataset, workdir, guidance_scale: float = 1.0,
     seed = 0
     if t_only:
         # the frozen partition is rebuilt as the training run built it
-        if fmt.get("pretrained_sd"):
-            sys.exit(f"checkpoint {workdir} was trained WITH --sdxl-checkpoint, "
-                     f"which is not ported yet")
+        if bool(fmt.get("pretrained_sd")) != (pretrained is not None):
+            sys.exit(
+                f"checkpoint {workdir} was trained "
+                f"{'WITH' if fmt.get('pretrained_sd') else 'WITHOUT'} "
+                f"--sdxl-checkpoint; pass the matching flag so the frozen "
+                f"partition can be reconstructed")
+        if "sdxl_fingerprint" in fmt and fmt["sdxl_fingerprint"] != (
+                (fingerprint or {}).get("digest")):
+            sys.exit(
+                f"checkpoint {workdir} was trained against SDXL checkpoint "
+                f"digest {fmt['sdxl_fingerprint']} "
+                f"(path {fmt.get('sdxl_checkpoint_path')}); this run's "
+                f"--sdxl-checkpoint has digest "
+                f"{(fingerprint or {}).get('digest')} — the frozen "
+                f"partition would be rebuilt from the wrong file")
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, frozen_dtype=fmt.get("frozen_dtype"),
             trainable_scope=fmt.get("trainable_scope", cfg.train.trainable_scope)))
         seed = int(fmt.get("seed", 0))
-    params = build_initial_params(cfg, seed, seed + 1, device=dev)
+    # a full-state checkpoint overwrites every leaf: the random init is
+    # only its template
+    params = build_initial_params(cfg, seed, seed + 1, pretrained if t_only else None,
+                                  device=dev)
     mask = joint_trainable_mask(params, cfg.train.trainable_scope)
     if t_only:
         verify_frozen_checksum(fmt.get("frozen_checksum"),

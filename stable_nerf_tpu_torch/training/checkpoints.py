@@ -21,7 +21,7 @@ import glob
 import json
 import os
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -82,26 +82,32 @@ def verify_frozen_checksum(recorded: Optional[Dict[str, float]],
                f"backend/version changes")
 
 
-def copy_into(live: Any, loaded: Any, path: str = "") -> Any:
+def copy_into(live: Any, loaded: Any, path: str = "", keep: Tuple[str, ...] = ()) -> Any:
     """Copy a loaded tree into the live tensors of ``live`` in place (no
     grad) and return ``live``'s tree.  Keys, lengths, shapes and dtypes
-    must match; a None in ``live`` takes the loaded subtree as it is."""
+    must match, but a dict key named in ``keep`` that the loaded tree lacks
+    keeps its live value; a None in ``live`` takes the loaded subtree as it
+    is."""
     if live is None:
         return loaded
     if isinstance(live, tuple) and hasattr(live, "_fields"):
         if not isinstance(loaded, dict):
             raise TypeError(f"{path}: {type(live).__name__} vs {type(loaded).__name__}")
-        return type(live)(**copy_into(live._asdict(), loaded, path))
+        return type(live)(**copy_into(live._asdict(), loaded, path, keep))
     if isinstance(live, dict):
-        if not isinstance(loaded, dict) or set(live) != set(loaded):
+        kept = {k for k in keep if k in live and k not in loaded} \
+            if isinstance(loaded, dict) else set()
+        if not isinstance(loaded, dict) or set(live) != set(loaded) | kept:
             got = sorted(loaded) if isinstance(loaded, dict) else type(loaded).__name__
             raise KeyError(f"{path or '<root>'}: checkpoint has {got}, expected "
                            f"{sorted(live)}")
-        return {k: copy_into(v, loaded[k], f"{path}/{k}") for k, v in live.items()}
+        return {k: v if k in kept else copy_into(v, loaded[k], f"{path}/{k}", keep)
+                for k, v in live.items()}
     if isinstance(live, (list, tuple)):
         if not isinstance(loaded, (list, tuple)) or len(loaded) != len(live):
             raise ValueError(f"{path}: checkpoint structure differs")
-        return [copy_into(v, w, f"{path}/{i}") for i, (v, w) in enumerate(zip(live, loaded))]
+        return [copy_into(v, w, f"{path}/{i}", keep)
+                for i, (v, w) in enumerate(zip(live, loaded))]
     if isinstance(live, torch.Tensor):
         if not isinstance(loaded, torch.Tensor) or loaded.shape != live.shape \
                 or loaded.dtype != live.dtype:
@@ -110,6 +116,11 @@ def copy_into(live: Any, loaded: Any, path: str = "") -> Any:
             raise ValueError(f"{path}: checkpoint has {desc}, expected "
                              f"{tuple(live.shape)} {live.dtype}")
         with torch.no_grad():
+            if loaded.device != live.device and not loaded.is_contiguous():
+                # a transposed view (a converted linear): moved as it is laid
+                # out, re-laid out by the device, not element by element on
+                # the host (one leaf's extra memory there)
+                loaded = loaded.to(live.device)
             live.copy_(loaded)
         return live
     return loaded

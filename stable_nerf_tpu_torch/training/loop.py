@@ -8,8 +8,10 @@ the JAX package: resumable checkpoints with optimizer state, a SIGTERM
 stop that saves first, metrics in ``metrics.jsonl``, the occupancy-driven
 sample budgets and the stochastic-encode warm-up.
 
-The data-, tensor- and fully-sharded paths of the JAX loop are not ported
-yet.  A restore loads on the CPU and copies into the live tensors, then
+Pretrained SDXL weights (``models.diffusion.weights.load_sdxl``) overlay
+the random init leaf by leaf in ``build_initial_params``.  The data-,
+tensor- and fully-sharded paths of the JAX loop are not ported yet.  A
+restore loads on the CPU and copies into the live tensors, then
 into the optimizer, so the card never holds the state twice.
 """
 
@@ -28,6 +30,7 @@ import torch
 
 from ..data.dataset import iterate, split_dataset
 from ..data.prefetch import device_prefetch
+from ..models.diffusion.clip_text import make_empty_prompt_conditioning
 from ..models.diffusion.scheduler import DDIMScheduler
 from ..models.diffusion.sd_network import init_ip_from_unet, sd_network_init
 from ..models.nerf.grid import grid_init, mark_untrained_grid, update_extra_state
@@ -35,9 +38,9 @@ from ..models.nerf.network import nerf_density, nerf_init
 from ..ops.compaction import suggest_sample_budget
 from ..utils.device import resolve_device
 from ..utils.profiling import StepTimer, device_memory_stats
-from ..utils.tree import dealias, partition, tree_leaves
+from ..utils.tree import dealias, partition, tree_leaves, tree_map
 from ..utils.visualization import sample_save_for_vis
-from .checkpoints import (CheckpointManager, frozen_partition_checksum,
+from .checkpoints import (CheckpointManager, copy_into, frozen_partition_checksum,
                           verify_frozen_checksum)
 from .inference import make_inference_step
 from .joint import (JointConfig, cast_frozen, derive_train_sample_budget,
@@ -72,20 +75,48 @@ def _stream_seed(seed: int, start_epoch: int) -> int:
 
 def build_initial_params(cfg: JointConfig, seed_sd: int, seed_nerf: int,
                          pretrained_sd: Optional[Dict] = None, *,
-                         device: Optional[torch.device] = None) -> Dict:
+                         device: Optional[torch.device] = None, log_fn=print) -> Dict:
     """The joint param tree as a fresh run builds it: the seeded random
-    init, the IP heads copied from the U-Net's to_k/to_v (reference
-    network.py:104-110), the frozen partition stored in
-    ``cfg.train.frozen_dtype``.  A trainable-only restore rebuilds the
-    frozen partition through this function, so it must stay deterministic
-    in its inputs.  Runs on ``device`` (default cuda)."""
+    init, overlaid with ``pretrained_sd`` where given, the IP heads copied
+    from the U-Net's to_k/to_v (reference network.py:104-110), the frozen
+    partition stored in ``cfg.train.frozen_dtype``.  A trainable-only
+    restore rebuilds the frozen partition through this function, so it
+    must stay deterministic in its inputs.  Runs on ``device`` (default
+    cuda).
+
+    ``pretrained_sd``: ``models.diffusion.weights.load_sdxl``'s dict.  Its
+    CLIP text towers only compute the empty-prompt conditioning
+    (``add_text_embeds``, ``add_time_ids``; reference network.py:114-168):
+    they visit the device for that one call and are dropped.  Every other
+    subtree (the VAE, the U-Net) is copied into the init's tensors in
+    place, one leaf at a time, so the device never holds two U-Nets; its
+    structure and shapes must match the init's, but the U-Net may lack
+    the IP heads (``load_sdxl(with_ip=False)``), which are cloned from
+    its to_k/to_v here in any case."""
     dev = resolve_device(device)
-    if pretrained_sd is not None:
-        raise NotImplementedError(
-            "pretrained SDXL weights are not ported yet: ROADMAP.md §1 queue, "
-            "CLIP, the tokenizer and weights.py")
-    params = {"sd": init_ip_from_unet(sd_network_init(seed_sd, cfg.sd, device=dev)),
+    overlay = dict(pretrained_sd or {})
+    towers = [overlay.pop("text_encoder", None), overlay.pop("text_encoder_2", None)]
+    cond = {}
+    if None not in towers:
+        te1, te2 = (tree_map(lambda x: x.to(dev), t) for t in towers)
+        _, pooled, time_ids = make_empty_prompt_conditioning(te1, te2)
+        del te1, te2
+        cond = {"add_text_embeds": pooled, "add_time_ids": time_ids}
+        log_fn(f"cached the empty-prompt conditioning of the text towers "
+               f"(pooled mean {float(pooled.mean()):+.4f})")
+    del towers
+    sd_params = sd_network_init(seed_sd, cfg.sd, device=dev, **cond)
+    for name, tree in overlay.items():
+        if name not in sd_params:
+            raise KeyError(f"pretrained weights hold {name!r}, which the SD network "
+                           f"has not (it has {sorted(sd_params)})")
+        copy_into(sd_params[name], tree, name, keep=("to_k_ip", "to_v_ip"))
+    del overlay
+    params = {"sd": init_ip_from_unet(sd_params),
               "nerf": nerf_init(seed_nerf, cfg.nerf, device=dev)}
+    # the init's own IP heads (~1.4 GB at full width) are replaced: free
+    # them before the frozen cast copies the tree
+    del sd_params
     mask = joint_trainable_mask(params, cfg.train.trainable_scope)
     params = cast_frozen(params, mask, cfg.train.frozen_dtype)
     # the optimizer updates leaves in place: no two may share memory
@@ -192,7 +223,8 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
 
     scheduler = DDIMScheduler.create(cfg.sd.scheduler, device=dev)
     had_pretrained = pretrained_sd is not None
-    params = build_initial_params(cfg, seed, seed + 1, pretrained_sd, device=dev)
+    params = build_initial_params(cfg, seed, seed + 1, pretrained_sd, device=dev,
+                                  log_fn=log_fn)
     log_hbm("params-init")
 
     grid_state = mark_untrained_grid(

@@ -288,3 +288,113 @@ def test_device_prefetch_and_checkpoint_round_trip_on_the_card(cuda, tmp_path):
             assert torch.equal(v.cpu(), opt2.state[p2][k].cpu()), k
         assert opt2.state[p2]["exp_avg"].is_cuda
     assert sched2.last_epoch == 2
+
+
+def _tiny_sdxl_dir(root):
+    """A tiny SDXL directory (the --tiny U-Net and VAE, two tiny text
+    towers in SDXL's head counts), float16, written by the port's writer."""
+    import chip_smoke
+    from stable_nerf_tpu_torch import train as cli
+    from stable_nerf_tpu_torch.models.diffusion import clip_text, weights
+    from stable_nerf_tpu_torch.models.diffusion.unet import unet_init
+    from stable_nerf_tpu_torch.models.diffusion.vae import vae_init
+
+    cfg = cli.build_config(cli.build_parser().parse_args(
+        ["--tiny", "--image-size", "32", "--latent-size", "16"]))
+    g = torch.Generator().manual_seed(7)
+    towers = (clip_text.CLIPTextConfig(hidden_size=24, num_layers=12, intermediate_size=16),
+              clip_text.CLIPTextConfig(hidden_size=40, num_layers=32, num_heads=20,
+                                       intermediate_size=16, hidden_act="gelu",
+                                       projection_dim=32, pad_token_id=0))
+    chip_smoke.write_sdxl_checkpoint(str(root), {
+        "unet": weights.export_unet_state_dict(unet_init(g, cfg.sd.unet, with_ip=False)),
+        "vae": weights.export_vae_state_dict(vae_init(g, cfg.sd.vae)),
+        "text_encoder": chip_smoke.clip_text_state_dict(
+            clip_text.clip_text_init(8, towers[0], device="cpu")),
+        "text_encoder_2": chip_smoke.clip_text_state_dict(
+            clip_text.clip_text_init(9, towers[1], device="cpu"))}, dtype=torch.float16)
+    return cfg, towers
+
+
+def test_load_sdxl_onto_the_card_equals_the_cpu(cuda, tmp_path):
+    """load_sdxl of a tiny float16 directory straight onto the card: every
+    leaf float32, on the card, equal to the CPU load bit for bit."""
+    from stable_nerf_tpu_torch.models.diffusion.weights import load_sdxl
+    from stable_nerf_tpu_torch.utils.tree import tree_leaves
+
+    cfg, towers = _tiny_sdxl_dir(tmp_path)
+    kw = dict(unet_cfg=cfg.sd.unet, vae_cfg=cfg.sd.vae, text_cfg_1=towers[0],
+              text_cfg_2=towers[1])
+    on_card = load_sdxl(str(tmp_path), **kw)
+    on_cpu = load_sdxl(str(tmp_path), device="cpu", **kw)
+    assert set(on_card) == {"vae", "unet", "text_encoder", "text_encoder_2"}
+    a, b = tree_leaves(on_card), tree_leaves(on_cpu)
+    assert len(a) == len(b) > 100
+    for x, y in zip(a, b):
+        assert x.is_cuda and x.dtype == torch.float32 and torch.equal(x.cpu(), y)
+
+
+def test_text_towers_on_the_card_match_the_cpu(cuda, tmp_path):
+    """The empty-prompt conditioning of two tiny towers on the card against
+    the CPU: 1e-5 of each output's scale (float32 sums in other orders
+    through 12 and 32 layers)."""
+    from stable_nerf_tpu_torch.models.diffusion.clip_text import make_empty_prompt_conditioning
+    from stable_nerf_tpu_torch.models.diffusion.weights import load_sdxl
+    from stable_nerf_tpu_torch.utils.device import disable_tf32
+
+    disable_tf32()
+    cfg, towers = _tiny_sdxl_dir(tmp_path)
+    kw = dict(unet_cfg=cfg.sd.unet, vae_cfg=cfg.sd.vae, text_cfg_1=towers[0],
+              text_cfg_2=towers[1])
+    card = load_sdxl(str(tmp_path), **kw)
+    cpu = load_sdxl(str(tmp_path), device="cpu", **kw)
+    got = make_empty_prompt_conditioning(card["text_encoder"], card["text_encoder_2"])
+    want = make_empty_prompt_conditioning(cpu["text_encoder"], cpu["text_encoder_2"])
+    for x, y in zip(got, want):
+        assert x.is_cuda and x.shape == y.shape
+        assert float((x.cpu() - y).abs().max()) <= 1e-5 * float(y.abs().max())
+
+
+def test_native_png_decode_on_the_cards_machine(cuda):
+    """native/dataloader.cpp builds there (g++, zlib) and decodes the PNGs
+    that chip_smoke.py writes, pixel for pixel."""
+    import numpy as np
+
+    import chip_smoke
+    from stable_nerf_tpu_torch.data import native_loader
+
+    native_loader.build()
+    pixels = np.random.default_rng(0).integers(0, 256, (37, 53, 4), dtype=np.uint8)
+    data = chip_smoke.png_bytes(pixels)
+    assert np.array_equal(native_loader.decode_png_uint8(data), pixels[..., :3])
+    assert np.array_equal(native_loader.decode_png_uint8(chip_smoke.png_bytes(
+        pixels[..., :3])), pixels[..., :3])
+
+
+def test_build_initial_params_with_weights_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """The overlay copies host leaves (transposed views among them) into
+    the card's tensors: every frozen leaf and IP head equal to the CPU
+    build's bit for bit; the conditioning (rounded to bf16) within one bf16
+    step."""
+    import dataclasses
+
+    from stable_nerf_tpu_torch.models.diffusion.weights import load_sdxl
+    from stable_nerf_tpu_torch.training.loop import build_initial_params
+    from stable_nerf_tpu_torch.utils.device import disable_tf32
+    from stable_nerf_tpu_torch.utils.tree import tree_leaves
+
+    disable_tf32()
+    cfg, towers = _tiny_sdxl_dir(tmp_path)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                             frozen_dtype="bfloat16"))
+    pre = load_sdxl(str(tmp_path), unet_cfg=cfg.sd.unet, vae_cfg=cfg.sd.vae,
+                    text_cfg_1=towers[0], text_cfg_2=towers[1], device="cpu")
+    on_card = build_initial_params(cfg, 0, 1, pre, log_fn=lambda m: None)
+    on_cpu = build_initial_params(cfg, 0, 1, pre, device="cpu", log_fn=lambda m: None)
+    for part in ("unet", "vae"):
+        a, b = tree_leaves(on_card["sd"][part]), tree_leaves(on_cpu["sd"][part])
+        assert len(a) == len(b) > 50
+        for x, y in zip(a, b):
+            assert x.is_cuda and x.dtype == y.dtype and torch.equal(x.cpu(), y)
+    torch.testing.assert_close(on_card["sd"]["add_text_embeds"].float().cpu(),
+                               on_cpu["sd"]["add_text_embeds"].float(), rtol=2 ** -7, atol=0)

@@ -1,6 +1,8 @@
 """The port (stable_nerf_tpu_torch) stands alone: no JAX, nothing of the JAX
-package, entry points that refuse to fall back to the CPU, and a chip
-smoke script that fails without a card or without the package."""
+package, none of ``safetensors``, ``transformers`` or PIL (the card's
+machine has none of them), entry points that refuse to fall back to the
+CPU, and a chip smoke script that fails without a card or without the
+package."""
 
 import os
 import shutil
@@ -21,7 +23,8 @@ for name in names:
 import chip_smoke
 chip_smoke.load_floor_script()      # scripts/bench_torch_fused_render_floor.py
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "stable_nerf_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "stable_nerf_tpu", "safetensors",
+                                    "transformers", "PIL"))
 print(len(names), bad)
 print(" ".join(names))
 """
@@ -40,13 +43,16 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert out.returncode == 0, out.stderr
     first, names = out.stdout.strip().split("\n")
     n, bad = first.split(" ", 1)
-    assert int(n) >= 42
+    assert int(n) >= 48
     assert bad.strip() == "[]", bad
     for mod in ("ops.compaction", "ops.ssim", "ops.hopper.gather",
                 "training.inference", "utils.losses", "ops.morton",
                 "data.preprocess", "data.dataset", "data.prefetch",
                 "utils.profiling", "utils.visualization",
-                "training.checkpoints", "training.loop", "train"):
+                "training.checkpoints", "training.loop", "train", "utils.safetensors",
+                "models.diffusion.weights", "models.diffusion.clip_text",
+                "models.diffusion.clip_vision", "models.diffusion.tokenizer",
+                "data.native_loader"):
         assert f"stable_nerf_tpu_torch.{mod}" in names.split(), mod
 
 
@@ -63,6 +69,11 @@ def _entry_points():
     from stable_nerf_tpu_torch.training.joint import (JointConfig, make_eval_step,
                                                       make_train_step)
     from stable_nerf_tpu_torch.training.loop import build_initial_params, train
+    from stable_nerf_tpu_torch.models.diffusion.clip_text import (clip_l_config,
+                                                                  clip_text_init)
+    from stable_nerf_tpu_torch.models.diffusion.clip_vision import (CLIPVisionConfig,
+                                                                    clip_vision_init)
+    from stable_nerf_tpu_torch.models.diffusion.weights import load_sdxl
 
     return {
         "nerf_init": lambda: nerf_init(0, NeRFConfig()),
@@ -77,13 +88,17 @@ def _entry_points():
         "build_initial_params": lambda: build_initial_params(JointConfig(), 0, 1),
         "device_prefetch": lambda: next(device_prefetch(iter([{}]))),
         "cli": lambda: cli.main(["--tiny", "--dataset", "synthetic"]),
+        "load_sdxl": lambda: load_sdxl("no-such-directory"),
+        "clip_text_init": lambda: clip_text_init(0, clip_l_config()),
+        "clip_vision_init": lambda: clip_vision_init(0, CLIPVisionConfig()),
     }
 
 
 @pytest.mark.parametrize("name", ["nerf_init", "sd_network_init", "grid_init",
                                   "scheduler", "make_train_step", "make_eval_step",
                                   "make_inference_step", "reset_extra_state", "train",
-                                  "build_initial_params", "device_prefetch", "cli"])
+                                  "build_initial_params", "device_prefetch", "cli",
+                                  "load_sdxl", "clip_text_init", "clip_vision_init"])
 def test_entry_points_default_to_cuda_and_refuse_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
