@@ -19,7 +19,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                level's rows, distinct rows and atomics left after merging,
                (f) a stochastic section [2^17, 8, 1], (g) rows outside their
                level's slab, negative and padding rows, (h) an odd M and T;
-               each with the zero fill's time apart;
+               each with the zero fill's time apart; (i) comes with fit_nerf;
   gather_cases the sorted row-gather kernel against its plain version, bit
                for bit: (a) the sorted-encode floor shape (33,554,432 sorted
                items, 16·2^19 rows, f32), (b) the reference tests' three
@@ -68,6 +68,20 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                --inference: load seconds an object, steps, scatter
                launches (16 a dense step), PSNR.  The SDXL directory and
                the data are removed at the end.
+  fit_nerf     scripts/fit_torch_nerf.py's fit at its defaults (128², 4,096
+               rays a step, 256 march steps, exact encode) for 200 steps: s
+               a step, scatter launches (8 a step), loss at the start and
+               the end, the 8-view mean PSNR before and after (it must
+               rise), peak memory; then (i) the scatter kernel on one chunk
+               of the trained fit's backward against its plain version,
+               with each level's distinct rows, the atomics left after
+               merging and the share of zero updates;
+  demo         the committed tiny VAE (runs/demo_vae/vae.npz) on the card,
+               its VAE(white) latent background against the JAX package's
+               within 1e-3; python -m stable_nerf_tpu_torch.train --dataset
+               synthetic --demo --vae-checkpoint runs/demo_vae/vae.npz for 2
+               epochs at batch 8, then --inference: per-epoch losses, s an
+               epoch, scatter launches (8 a step), PSNR, peak memory.
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last the device
 line ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
 
@@ -103,6 +117,15 @@ SCATTER_RUN = 16         # kRun of csrc/hash_scatter.cu: samples a thread walks
 LOOP_SCENES = 10         # scenes of the training loop's run: an 8 / 1 / 1 split
 PRETRAINED_SEED = 7      # the written SDXL weights: not the loop's seed
 OBJAVERSE_OBJECTS = 10   # objects of the CLI's objaverse run: an 8 / 1 / 1 split
+FIT_STEPS = 200          # steps of the NeRF fit harness's run
+DEMO_VAE = "runs/demo_vae/vae.npz"       # the committed JAX-trained tiny VAE
+# the JAX package's VAE(white) latent background of DEMO_VAE in float32 on
+# the CPU (tests/test_torch_demo.py holds it); its TPU run printed
+# [0.5, 0.721, 0.42, 0.564] (runs/demo_diffusion.log), rounded to three
+# places from convolutions with bf16 passes
+DEMO_BG_F32 = (0.4997452, 0.7217328, 0.42126554, 0.56418204)
+DEMO_BG_TPU_LOG = (0.5, 0.721, 0.42, 0.564)
+DEMO_EPOCHS = 2
 
 
 def emit(obj) -> None:
@@ -560,17 +583,22 @@ def gather_cases(dev, floor):
     return cases
 
 
-def load_floor_script():
-    """scripts/bench_torch_fused_render_floor.py as a module."""
+def load_script(name):
+    """scripts/<name>.py as a module."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                        "bench_torch_fused_render_floor.py")
-    spec = importlib.util.spec_from_file_location("bench_torch_fused_render_floor",
-                                                  path)
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    if scripts not in sys.path:      # a script may import a sibling
+        sys.path.insert(0, scripts)
+    spec = importlib.util.spec_from_file_location(name, os.path.join(scripts, name + ".py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_floor_script():
+    """scripts/bench_torch_fused_render_floor.py as a module."""
+    return load_script("bench_torch_fused_render_floor")
 
 
 def encode_floor(dev, floor):
@@ -1396,6 +1424,161 @@ def cli(here, ckpt_dir):
     return row
 
 
+def trained_rows_case(fit, args, out, dev):
+    """K1 on one chunk of the fit's backward after its last step: the
+    [2^17, 16, 8] rows and pair updates of a learned, sparse grid, captured
+    at the encode's call of the wrapper (one more step at lr 0, after the
+    launch count was read), held against the plain version as every
+    scatter case is, with each level's distinct rows, the atomics left
+    after merging and the share of zero updates (samples past the grid's
+    occupied cells get a zero cotangent)."""
+    import torch
+
+    from stable_nerf_tpu_torch.ops import encoding
+    from stable_nerf_tpu_torch.utils.tree import tree_leaves
+
+    cfg = fit.nerf_config(args)
+    captured = []
+    wrapper = encoding.hash_scatter_add_per_level
+
+    def record(idx, upd, *a, **kw):
+        if not captured:
+            captured.append((idx.clone(), upd.clone()))
+        return wrapper(idx, upd, *a, **kw)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    views = out["views"]
+    n_pool = views["pool_o"].shape[0]
+    encoding.hash_scatter_add_per_level = record
+    try:
+        fit.train_step(out["params"], torch.optim.SGD(tree_leaves(out["params"]), lr=0.0),
+                       None, out["state"], views, cfg,
+                       torch.randint(0, n_pool, (args.rays_per_batch,), generator=g,
+                                     device=dev),
+                       torch.rand(args.rays_per_batch, generator=g, device=dev),
+                       bg=args.bg, max_steps=args.max_steps, loss=args.loss, budget=None)
+    finally:
+        encoding.hash_scatter_add_per_level = wrapper
+    idx, upd = captured[0]
+    hg = cfg.encoding_sigma
+    case = scatter_case("i_fit_trained_rows", idx, upd, hg.n_levels, hg.table_size,
+                        False, reps=20)
+    case["distinct_rows_by_level"] = [int(torch.unique(idx[:, l]).numel())
+                                      for l in range(hg.n_levels)]
+    case["atomics_after_merging"] = sum(merged_atomics(idx[:, l]) for l in range(hg.n_levels))
+    case["zero_update_share"] = float((upd == 0).all(-1).float().mean())
+    return case
+
+
+def fit_nerf(here, dev):
+    """scripts/fit_torch_nerf.py's ``run`` at its defaults (128², 4,096
+    rays a step, 256 march steps, exact encode, dense) for FIT_STEPS
+    steps: s a step, K1 launches a step (8: 2^20 samples in chunks of
+    2^17), the loss at the start and the end, the 8-view mean PSNR before
+    the first step (after the first refresh) and after the last, which
+    must be higher, peak memory; then the trained-rows K1 case."""
+    import torch
+
+    from stable_nerf_tpu_torch.ops.hopper.scatter import hash_scatter_add_per_level
+
+    fit = load_script("fit_torch_nerf")
+    args = fit.build_parser().parse_args([
+        "--steps", str(FIT_STEPS), "--log-every", str(FIT_STEPS + 1),
+        "--data-root", os.path.join(here, "datasets"),
+        "--out", os.path.join(here, "chiprun_out", "fit_nerf")])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hash_scatter_add_per_level.launches = 0
+    out = fit.run(args, dev, log=lambda line: print(line, file=sys.stderr, flush=True),
+                  start_psnr=True)
+    launches = hash_scatter_add_per_level.launches
+    peak = torch.cuda.max_memory_allocated()
+    case = trained_rows_case(fit, args, out, dev)
+    start, end = statistics.mean(out["start_psnr"]), statistics.mean(out["psnr"])
+    losses = out["losses"]
+    row = {"phase": "fit_nerf", "steps": FIT_STEPS, "size": args.size,
+           "rays_per_step": args.rays_per_batch, "max_steps": args.max_steps,
+           "s_per_step": out["train_s"] / FIT_STEPS, "train_s": out["train_s"],
+           "scatter_launches": launches, "scatter_launches_per_step": launches / FIT_STEPS,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "loss_last_10_mean": statistics.mean(losses[-10:]),
+           "psnr_start": out["start_psnr"], "psnr_end": out["psnr"],
+           "psnr_start_mean": start, "psnr_end_mean": end,
+           "final_line": fit.final_line(out["psnr"]),
+           "max_memory_allocated": peak, "i_fit_trained_rows": case}
+    row["ok"] = bool(all(math.isfinite(x) for x in losses) and launches == 8 * FIT_STEPS
+                     and math.isfinite(end) and end > start and case["ok"])
+    del out
+    torch.cuda.empty_cache()
+    return row, case
+
+
+def demo(here, dev):
+    """The learned-diffusion demo on the committed JAX-trained tiny VAE:
+    the artifact loads onto the card and its VAE(white) latent background
+    equals the JAX package's float32 value within 1e-3; then
+    ``python -m stable_nerf_tpu_torch.train --dataset synthetic --demo
+    --vae-checkpoint runs/demo_vae/vae.npz`` for DEMO_EPOCHS epochs at the
+    JAX run's batch 8 and lrs, then ``--inference`` on its workdir (under
+    .cache/, removed after): per-epoch losses, s an epoch, K1 launches (8
+    a step), the inference's PSNR (finite), the peak."""
+    import re
+    import shutil
+
+    import torch
+
+    from stable_nerf_tpu_torch import train as cli_mod
+    from stable_nerf_tpu_torch.models.diffusion.vae import vae_load_npz
+
+    t = time.perf_counter()
+    vae, vae_cfg, meta = vae_load_npz(os.path.join(here, DEMO_VAE), device=dev)
+    load_s = time.perf_counter() - t
+    args = cli_mod.build_parser().parse_args(["--demo", "--vae-checkpoint", DEMO_VAE])
+    cli_mod.apply_demo_defaults(args)
+    bg = cli_mod.latent_background(vae, cli_mod.build_config(args, vae_cfg), dev)
+    bg_err = max(abs(a - b) for a, b in zip(bg, DEMO_BG_F32))
+    del vae
+    workdir = os.path.join(here, ".cache", "chip_smoke_demo")
+    shutil.rmtree(workdir, ignore_errors=True)
+    argv = ["--dataset", "synthetic", "--demo", "--vae-checkpoint", DEMO_VAE,
+            "--batch-size", "8", "--lr", "1e-3", "--nerf-lr", "1e-2", "--val-every", "10",
+            "--inference-every", "100", "--checkpoint-every", "0", "--seed", str(SEED),
+            "--workdir", workdir]
+    try:
+        (train_row, train_log), (infer_row, infer_log) = (
+            run_cli(here, argv + extra, timeout=600)
+            for extra in (["--epochs", str(DEMO_EPOCHS)], ["--inference"]))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    epochs = [(float(a), int(b), float(c)) for a, b, c in re.findall(
+        r"epoch \d+: train (\S+) val \S+ \(\d+ rays/s, (\d+) steps in ([\d.]+) s\)",
+        train_log)]
+    steps = sum(e[1] for e in epochs)
+    psnr = [float(v) for v in re.findall(r"PSNR (\S+)", infer_log)]
+    printed_bg = re.search(r"latent background from VAE\(white\): (\[.*\])", train_log)
+    row = {"phase": "demo", "vae": DEMO_VAE, "vae_config": list(vae_cfg.block_out_channels),
+           "scaling_factor": vae_cfg.scaling_factor, "vae_load_s": load_s,
+           "recon_psnr_test": meta.get("recon_psnr_test"),
+           "background": list(bg), "background_vs_jax_f32_max_abs": bg_err,
+           "background_vs_tpu_log_max_abs": max(abs(a - b)
+                                                for a, b in zip(bg, DEMO_BG_TPU_LOG)),
+           "background_tolerance": 1e-3,
+           "cli_background": printed_bg.group(1) if printed_bg else None,
+           "epochs": DEMO_EPOCHS, "epoch_train_losses": [e[0] for e in epochs],
+           "epoch_steps": [e[1] for e in epochs], "epoch_train_s": [e[2] for e in epochs],
+           "s_per_step": sum(e[2] for e in epochs) / max(steps, 1),
+           "scatter_launches": train_row.get("scatter_launches"),
+           "expected_launches": 8 * steps, "psnr": psnr,
+           "runs": {"train": train_row, "inference": infer_row}}
+    row["ok"] = bool(bg_err <= 1e-3 and train_row["rc"] == 0 and infer_row["rc"] == 0
+                     and len(epochs) == DEMO_EPOCHS and steps > 0
+                     and all(math.isfinite(e[0]) for e in epochs)
+                     and train_row.get("scatter_launches") == 8 * steps
+                     and psnr and all(math.isfinite(p) for p in psnr))
+    torch.cuda.empty_cache()
+    return row
+
+
 def profile_step(state, out_dir, what):
     """One more call of a step (``what``: "joint_step" or "serve_request")
     under torch.profiler: device time by kernel name, the busy share of the
@@ -1573,6 +1756,12 @@ def main() -> int:
 
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     cli_row = phases[-1]
+    fitted, trained_case = fit_nerf(here, dev)
+    emit(fitted)
+    cases.append(trained_case)
+    demoed = demo(here, dev)
+    emit(demoed)
+    phases += [fitted, demoed]
 
     a, ga = cases[0], gathers[0]
     emit({"kernels": [{
@@ -1584,7 +1773,9 @@ def main() -> int:
         "launches_by_path": {"joint_train": joint["scatter_launches"],
                              "train_loop": looped["scatter_launches"],
                              "cli_objaverse_pretrained":
-                                 cli_row["objaverse"]["runs"]["train"].get("scatter_launches")},
+                                 cli_row["objaverse"]["runs"]["train"].get("scatter_launches"),
+                             "fit_nerf": fitted["scatter_launches"],
+                             "demo": demoed["scatter_launches"]},
         "max_abs_err": a["kernel_vs_plain_max_abs"],
         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"], "library_ms": a["library_ms"],

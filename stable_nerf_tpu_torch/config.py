@@ -88,6 +88,20 @@ class NeRFConfig:
 
 
 @dataclass(frozen=True)
+class TinyNeRFConfig:
+    """The tiny-NeRF parity config (reference test_nerf.py:146-166)."""
+
+    n_layers: int = 8
+    width: int = 256
+    n_freqs_pos: int = 6
+    n_freqs_dir: int = 4
+    n_samples: int = 64
+    near: float = 2.0
+    far: float = 6.0
+    use_viewdirs: bool = True
+
+
+@dataclass(frozen=True)
 class SDConfig:
     """SDXL + IP-Adapter stack."""
 

@@ -97,7 +97,7 @@ def _port_config_classes():
 
     classes = [config.HashGridConfig, config.SHConfig, config.MLPConfig,
                config.NeRFConfig, config.SDConfig, config.SchedulerConfig,
-               config.TrainConfig, VAEConfig, UNetConfig, SDNetworkConfig,
+               config.TrainConfig, config.TinyNeRFConfig, VAEConfig, UNetConfig, SDNetworkConfig,
                JointConfig]
     return {c.__name__: c for c in classes}
 

@@ -60,6 +60,19 @@ def tiny_unet_config() -> UNetConfig:
     )
 
 
+def demo_unet_config(num_tokens: int = 16) -> UNetConfig:
+    """The learned-diffusion demo's U-Net, trained from scratch:
+    cross-attention at both resolutions, wider channels than the tiny
+    config, and ``num_tokens`` IP tokens a view at width 64, so that the
+    2·num_tokens·64 conditioning values cover a 16×16×4 latent."""
+    return UNetConfig(
+        block_out_channels=(64, 128), transformer_layers=(1, 2), head_dim=8,
+        cross_attention_dim=64, norm_groups=16, addition_time_embed_dim=16,
+        projection_class_embeddings_input_dim=32 + 6 * 16,
+        pooled_projection_dim=32, ip_num_tokens=num_tokens,
+    )
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------

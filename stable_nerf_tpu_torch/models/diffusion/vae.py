@@ -7,14 +7,19 @@ and inference steps) whatever the storage dtype of the weights.
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .nn import conv2d, group_norm, sdpa, silu, uniform
+from ...utils.device import resolve_device
+from ...utils.tree import tree_leaves_with_path, tree_map_with_path
+from .nn import META_GENERATOR, conv2d, group_norm, sdpa, silu, uniform
 
 
 @dataclass(frozen=True)
@@ -130,6 +135,40 @@ def vae_init(generator: torch.Generator, cfg: VAEConfig = VAEConfig()) -> Dict:
             "conv_out": _conv(g, dec_ch[-1], cfg.in_channels, 3),
         },
     }
+
+
+def vae_save_npz(path: str, params: Dict, cfg: VAEConfig, meta: Optional[Dict] = None) -> None:
+    """Write a (trained) VAE and its config to one ``.npz``, the JAX
+    package's artifact format: one array a leaf under its
+    ``jax.tree_util.keystr`` path, in JAX's leaf order, in the layouts
+    both packages share, and ``__vae_meta__``, the JSON of ``{"config",
+    "meta"}`` as uint8.  Either package loads what the other writes."""
+    arrays = {k: leaf.detach().cpu().numpy() for k, leaf in tree_leaves_with_path(params)}
+    header = {"config": dataclasses.asdict(cfg), "meta": meta or {}}
+    arrays["__vae_meta__"] = np.frombuffer(json.dumps(header).encode(), dtype=np.uint8)
+    np.savez(path, **arrays)
+
+
+def vae_load_npz(path: str, device=None):
+    """Load a ``vae_save_npz`` artifact (written by either package) →
+    (params on ``device``, default cuda; VAEConfig; meta).  Every leaf of
+    the config's tree must be present with the shape the config gives it."""
+    dev = resolve_device(device)
+    data = np.load(path)
+    header = json.loads(bytes(data["__vae_meta__"].tobytes()).decode())
+    cfg_dict = dict(header["config"])
+    cfg_dict["block_out_channels"] = tuple(cfg_dict["block_out_channels"])
+    cfg = VAEConfig(**cfg_dict)
+
+    def leaf(key, tmpl):
+        arr = data[key]
+        if arr.shape != tuple(tmpl.shape):
+            raise ValueError(f"{path}: leaf {key} has shape {arr.shape}, "
+                             f"config expects {tuple(tmpl.shape)}")
+        return torch.from_numpy(arr).to(dev)
+
+    params = tree_map_with_path(leaf, vae_init(META_GENERATOR, cfg))
+    return params, cfg, header["meta"]
 
 
 def vae_encode_moments(params: Dict, x: torch.Tensor, cfg: VAEConfig = VAEConfig()):

@@ -244,3 +244,13 @@ def sh_encoding(d: torch.Tensor, degree: int = 4) -> torch.Tensor:
                 0.59004358992664352 * x * (-x2 + 3.0 * y2)]
     return torch.stack(out, dim=-1)
 
+
+
+def freq_encoding(x: torch.Tensor, n_freqs: int, include_input: bool = True) -> torch.Tensor:
+    """γ(p) = (p?, sin(2⁰p), cos(2⁰p), …, sin(2^{L−1}p), cos(2^{L−1}p)) of
+    the tiny NeRF → [..., D·(2L + include_input)], sin then cos per octave,
+    as the original NeRF lays it out."""
+    freqs = 2.0 ** torch.arange(n_freqs, dtype=x.dtype, device=x.device)     # [L]
+    xb = x[..., None, :] * freqs[:, None]                                    # [..., L, D]
+    enc = torch.cat([torch.sin(xb), torch.cos(xb)], dim=-1).reshape(*x.shape[:-1], -1)
+    return torch.cat([x, enc], dim=-1) if include_input else enc

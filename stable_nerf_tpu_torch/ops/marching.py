@@ -4,6 +4,8 @@ stable_nerf_tpu/ops/marching.py).
 With ``dt_gamma == 0`` the reference's CUDA march keeps ``t`` on the
 uniform lattice ``t0 + k·dt``, so marching is "evaluate every lattice point,
 mask those in unoccupied voxels" — no compaction, no dynamic shapes.
+``march_rays_iterative``, the CUDA march step for step, is the oracle of
+that equivalence and the only path for ``dt_gamma > 0``.
 """
 
 from __future__ import annotations
@@ -78,3 +80,83 @@ def march_rays_lattice(rays_o, rays_d, nears, fars, occ_grid, *, bound: float,
     if K > max_steps:   # num_steps cap (raymarching.cu:360)
         valid = valid & (torch.cumsum(valid.to(torch.int32), dim=-1) <= max_steps)
     return pos, ts, dt, valid, t0
+
+
+def march_rays_iterative(rays_o, rays_d, nears, fars, occ_grid, *, bound: float,
+                         cascade: int, grid_size: int, max_steps: int,
+                         dt_gamma: float = 0.0, n_samples: Optional[int] = None,
+                         noise: Optional[torch.Tensor] = None,
+                         iter_max: Optional[int] = None):
+    """The CUDA DDA march (kernel_march_rays_train, raymarching.cu:312-491)
+    step for step, all rays at once: cone-angle stepping (``dt_gamma > 0``,
+    raymarching.cu:366) and the analytic skip of empty voxels
+    (raymarching.cu:390-399).  Slow but exact: the oracle of
+    ``march_rays_lattice``, to which it is equivalent at dt_gamma == 0.
+
+    Every iteration either writes a sample (at most ``max_steps``) or
+    crosses a voxel boundary (about 3H a cascade), so ``iter_max`` defaults
+    to max_steps + 4·H·cascade; the loop stops early once no ray is left.
+
+    Returns xyzs [N, K, 3], ts [N, K] (sample distances), dts [N, K] (each
+    sample's step, the CUDA deltas[:, 0]), delta_depth [N, K]
+    (deltas[:, 1]), valid [N, K] bool, t0 [N].
+    """
+    K = n_samples if n_samples is not None else max_steps
+    H = grid_size
+    o, d = rays_o.float(), rays_d.float()
+    N, dev = o.shape[0], o.device
+    dt_min = torch.tensor(2.0 * SQRT3 / max_steps, dtype=torch.float32, device=dev)
+    dt_max = torch.tensor(2.0 * SQRT3 * 2 ** (cascade - 1) / H, dtype=torch.float32,
+                          device=dev)
+    occ_flat = occ_grid.reshape(-1)
+    n_iter = iter_max if iter_max is not None else max_steps + 4 * H * cascade
+    if noise is None:
+        noise = torch.zeros(N, device=dev)
+
+    def step_of(t):
+        return torch.clamp(t * dt_gamma, dt_min, dt_max)
+
+    t0 = nears + step_of(nears) * noise
+    rd = 1.0 / d
+    t, last_t = t0.clone(), t0.clone()
+    step = torch.zeros(N, dtype=torch.int64, device=dev)
+    xyzs = torch.zeros((N, K, 3), device=dev)
+    ts = torch.zeros((N, K), device=dev)
+    dts = torch.zeros((N, K), device=dev)
+    dd = torch.zeros((N, K), device=dev)
+    valid = torch.zeros((N, K), dtype=torch.bool, device=dev)
+    for _ in range(n_iter):
+        active = (t < fars) & (step < max_steps)
+        if not bool(active.any()):
+            break
+        pos = torch.clamp(o + t[:, None] * d, -bound, bound)
+        dt = step_of(t)
+        level = torch.maximum(mip_from_pos(pos, cascade), mip_from_dt(dt, H, cascade))
+        mip_bound = torch.clamp(torch.exp2(level.float()), max=bound)
+        n = torch.clamp((0.5 * (pos / mip_bound[:, None] + 1.0) * H).to(torch.int32),
+                        0, H - 1)
+        flat = ((level.long() * H + n[:, 0]) * H + n[:, 1]) * H + n[:, 2]
+        occ = occ_flat[flat.long()]
+        write, skip = active & occ, active & ~occ
+        # an occupied voxel: write the sample at this step
+        t_new = t + dt
+        r = torch.nonzero(write).squeeze(1)
+        s = torch.clamp(step[r], max=K - 1)
+        xyzs[r, s] = pos[r]
+        ts[r, s] = t[r]
+        dts[r, s] = dt[r]
+        dd[r, s] = (t_new - last_t)[r]
+        valid[r, s] = step[r] < K
+        # an empty one: step to the voxel's far boundary, at least once
+        bounds = ((n.float() + 0.5 + 0.5 * torch.sign(d)) / H * 2.0 - 1.0) * mip_bound[:, None]
+        tt = t + ((bounds - pos) * rd).amin(dim=-1).clamp(min=0.0)
+        t_skip = t + step_of(t)
+        while True:
+            more = skip & (t_skip < tt)
+            if not bool(more.any()):
+                break
+            t_skip = torch.where(more, t_skip + step_of(t_skip), t_skip)
+        t = torch.where(write, t_new, torch.where(skip, t_skip, t))
+        last_t = torch.where(write, t_new, last_t)
+        step = step + write.long()
+    return xyzs, ts, dts, dd, valid, t0

@@ -5,6 +5,8 @@ more, ``--device``).
 Usage:
   python -m stable_nerf_tpu_torch.train --dataset synthetic     # train
   python -m stable_nerf_tpu_torch.train --sdxl-checkpoint DIR   # objaverse, real SDXL
+  python -m stable_nerf_tpu_torch.train --dataset synthetic --demo \\
+      --vae-checkpoint runs/demo_vae/vae.npz                     # learned-diffusion demo
   python -m stable_nerf_tpu_torch.train --inference --workdir X # restore + DDIM
   python -m stable_nerf_tpu_torch.train --tiny --dataset synthetic \\
       --image-size 32 --latent-size 16 --device cpu              # smoke run
@@ -29,8 +31,6 @@ NOT_PORTED = {
     "--distributed": "parallel/",
     "--coordinator": "parallel/",
     "--remat": "parallel/ (U-Net remat)",
-    "--demo": "the other scripts/ (the demo preset and its tiny VAE)",
-    "--vae-checkpoint": "the other scripts/ (the demo preset and its tiny VAE)",
 }
 
 
@@ -118,11 +118,18 @@ def build_parser():
     p.add_argument("--tiny", action="store_true",
                    help="tiny model configs (smoke tests; pairs with --image-size "
                         "32 --latent-size 16)")
-    p.add_argument("--demo", action="store_true", help="not ported yet")
+    p.add_argument("--demo", action="store_true",
+                   help="learned-diffusion demo preset: the demo U-Net trained from "
+                        "scratch (--trainable-scope sd), a scene-pretrained tiny VAE "
+                        "(--vae-checkpoint), geometric ray intrinsics, image 64 / "
+                        "latent 16 unless given")
     p.add_argument("--trainable-scope", default=None, choices=("reference", "sd"),
                    help="optimizer coverage: 'reference' = ip heads + NeRF (default); "
                         "'sd' = also the whole U-Net")
-    p.add_argument("--vae-checkpoint", default=None, help="not ported yet")
+    p.add_argument("--vae-checkpoint", default=None,
+                   help="a pretrained tiny VAE (.npz, scripts/pretrain_tiny_vae.py or "
+                        "scripts/pretrain_torch_tiny_vae.py): overlays its params and "
+                        "adopts its config, measured latent scaling factor included")
     p.add_argument("--vae-encode", default=None, choices=("sample", "mode"),
                    help="latent-target encode: 'sample' (reference parity) or 'mode'")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -139,22 +146,80 @@ def _refused_flags(args) -> list:
         "--distributed": args.distributed,
         "--coordinator": args.coordinator is not None,
         "--remat": args.remat,
-        "--demo": args.demo,
-        "--vae-checkpoint": args.vae_checkpoint is not None,
     }
     return [flag for flag, on in given.items() if on]
 
 
-def build_config(args):
+def apply_demo_defaults(args) -> None:
+    """The --demo preset's defaults, where the flags keep train.py's own:
+    image 64, latent 16, trainable scope "sd", the mode encode."""
+    if args.image_size == 512:
+        args.image_size = 64
+    if args.latent_size == 64:
+        args.latent_size = 16
+    if args.trainable_scope is None:
+        args.trainable_scope = "sd"
+    if args.vae_encode is None:
+        args.vae_encode = "mode"
+
+
+def check_vae_artifact(args, meta) -> None:
+    """Refuse an artifact trained at other sizes than the run's."""
+    if meta.get("latent_size") not in (None, args.latent_size):
+        sys.exit(f"--vae-checkpoint was trained at latent {meta['latent_size']}, "
+                 f"run wants {args.latent_size}")
+    if meta.get("image_size") not in (None, args.image_size):
+        sys.exit(f"--vae-checkpoint was trained at image {meta['image_size']}, "
+                 f"run wants {args.image_size}")
+
+
+def demo_vae_config(image_size: int, latent_size: int):
+    """The tiny VAE without an artifact, as the pretraining script builds
+    it: for image = latent·2^k, k + 1 stages of widths 32·2^i."""
+    from .models.diffusion.vae import VAEConfig
+
+    factor = image_size // latent_size
+    if factor * latent_size != image_size or 2 ** (factor.bit_length() - 1) != factor:
+        sys.exit("--demo needs image-size = latent-size x 2^k")
+    return VAEConfig(block_out_channels=tuple(32 * 2 ** i for i in range(factor.bit_length())),
+                     layers_per_block=1, norm_groups=8)
+
+
+def latent_background(vae_params, cfg, device) -> tuple:
+    """The per-channel latent of a white image, in the supervised space
+    ((mode latent + 1) / 2, averaged over the latent's pixels): the NeRF's
+    background colour under a trained VAE, whose white is no latent 1."""
+    import torch
+
+    from .models.diffusion.sd_network import encode_images_mode
+
+    white = torch.ones((1, 3, cfg.sd.sd.image_size, cfg.sd.sd.image_size), device=device)
+    with torch.no_grad():
+        lt = encode_images_mode({"vae": vae_params}, white, cfg.sd)
+    return tuple(float(v) for v in (lt.mean(dim=(0, 2, 3)) + 1.0) / 2.0)
+
+
+def build_config(args, vae_cfg=None):
     """The JointConfig that train.py builds from the same flags: the
-    flagship, or the --tiny preset."""
+    flagship, the --tiny or the --demo preset (``apply_demo_defaults``
+    already applied; ``vae_cfg`` the artifact's, else derived from the
+    sizes)."""
     from .config import HashGridConfig, NeRFConfig, SDConfig, TrainConfig
     from .models.diffusion.sd_network import SDNetworkConfig
-    from .models.diffusion.unet import tiny_unet_config
+    from .models.diffusion.unet import demo_unet_config, tiny_unet_config
     from .models.diffusion.vae import VAEConfig
     from .training.joint import JointConfig
 
-    if args.tiny:
+    if args.demo:
+        num_tokens = 16
+        nerf_cfg = NeRFConfig(channel_dim=4, density_activation="trunc_exp")
+        sd_cfg = SDNetworkConfig(
+            sd=SDConfig(latent_size=args.latent_size, image_size=args.image_size,
+                        cross_attention_dim=64, num_tokens=num_tokens,
+                        use_downsampling_layers=False),
+            unet=demo_unet_config(num_tokens),
+            vae=vae_cfg or demo_vae_config(args.image_size, args.latent_size))
+    elif args.tiny:
         nerf_cfg = NeRFConfig(channel_dim=4, grid_size=32,
                               encoding_sigma=HashGridConfig(n_levels=4, log2_hashmap_size=12,
                                                             base_resolution=4))
@@ -207,6 +272,11 @@ def main(argv=None):
     if refused:
         sys.exit("not ported yet: " + "; ".join(
             f"{flag} (ROADMAP.md §1 queue: {NOT_PORTED[flag]})" for flag in refused))
+    if args.tiny and args.demo:
+        sys.exit("--tiny and --demo are distinct presets — pick one")
+    if args.vae_checkpoint and not args.demo:
+        sys.exit("--vae-checkpoint is the demo VAE overlay — pair it with "
+                 "--demo (whose VAEConfig is adopted from the artifact)")
     if args.compile_cache is not None:
         print("--compile-cache belongs to the JAX package; ignored")
     if args.stochastic and args.stochastic_until_epoch:
@@ -224,7 +294,24 @@ def main(argv=None):
     dev = resolve_device(args.device)
     disable_tf32()
     workdir = args.workdir or f"output_{datetime.now().strftime('%Y%m%d_%H%M%S')}"
-    cfg = build_config(args)
+    vae_overlay = vae_cfg = None
+    if args.demo:
+        apply_demo_defaults(args)
+        if args.vae_checkpoint:
+            from .models.diffusion.vae import vae_load_npz
+
+            vae_overlay, vae_cfg, vae_meta = vae_load_npz(args.vae_checkpoint, device=dev)
+            check_vae_artifact(args, vae_meta)
+            print(f"VAE checkpoint: recon "
+                  f"{vae_meta.get('recon_psnr_test', float('nan')):.2f} dB test, "
+                  f"scaling {vae_cfg.scaling_factor:.3f}")
+    cfg = build_config(args, vae_cfg)
+    if vae_overlay is not None:
+        # with a scalar background of 1 the NeRF would have to fog empty
+        # space to paint the trained VAE's latent of white
+        bg = latent_background(vae_overlay, cfg, dev)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, bg_color=bg))
+        print(f"latent background from VAE(white): {[round(b, 3) for b in bg]}")
 
     print(f"workdir: {workdir}")
     print("loading dataset…")
@@ -232,7 +319,8 @@ def main(argv=None):
     dataset = StableNeRFDataset(args.dataset, shape=args.image_size,
                                 encoded_shape=args.latent_size,
                                 percent_objects=args.percent_objects,
-                                root=args.data_root, seed=args.seed)
+                                root=args.data_root, seed=args.seed,
+                                scale_intrinsics=args.demo)
     print(f"dataset: {len(dataset)} paired samples in {time.perf_counter() - t0:.3f} s")
 
     pretrained = fingerprint = None
@@ -256,6 +344,11 @@ def main(argv=None):
                                vae_cfg=cfg.sd.vae, device="cpu")
         print(f"loaded {fingerprint['total_bytes']} bytes of SDXL weights in "
               f"{time.perf_counter() - t0:.3f} s")
+    if vae_overlay is not None:
+        # the trained VAE replaces the init's through the same overlay as
+        # SDXL weights; a trainable-only checkpoint records no fingerprint
+        # of it, and its frozen checksum refuses another VAE on restore
+        pretrained = {**(pretrained or {}), "vae": vae_overlay}
 
     if args.inference:
         run_inference(cfg, dataset, workdir, guidance_scale=args.guidance_scale,

@@ -21,11 +21,30 @@ def tree_leaves(tree: Any) -> List[Any]:
     """Leaves in a fixed order: dict keys sorted (as JAX orders them), then
     list order.  Two trees of one structure give aligned leaves whatever
     order their dicts were built in."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def tree_leaves_with_path(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) pairs in ``tree_leaves``' order, each path written as
+    ``jax.tree_util.keystr`` writes it: ``['k']`` for a dict key, ``[i]``
+    for a list index (e.g. ``['decoder']['up_blocks'][0]['conv1']['kernel']``)."""
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+        return [x for k in sorted(tree)
+                for x in tree_leaves_with_path(tree[k], f"{prefix}[{k!r}]")]
     if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
+        return [x for i, v in enumerate(tree)
+                for x in tree_leaves_with_path(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
+def tree_map_with_path(fn: Callable, tree: Any, prefix: str = "") -> Any:
+    """Apply ``fn(path, leaf)`` to every leaf, the path as in
+    ``tree_leaves_with_path``."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}[{k!r}]") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map_with_path(fn, v, f"{prefix}[{i}]") for i, v in enumerate(tree)]
+    return fn(prefix, tree)
 
 
 def partition(tree: Any, mask: Any) -> Tuple[Any, Any]:

@@ -13,7 +13,9 @@ version's index_add_; the encode's table
 gradient (~10 updates a row) to 1e-5 relative and absolute.  The gather
 kernel only rounds and moves values: bit for bit.  The tiny inference
 step on the card against the CPU: 1e-3 of each key's scale (float32 sums
-in other orders through three U-Net passes and the VAE decode).
+in other orders through three U-Net passes and the VAE decode).  The demo
+VAE artifact loads onto the card bit for bit; a fit step's loss on the
+card within 1e-4 of the CPU's.
 """
 
 import pytest
@@ -398,3 +400,90 @@ def test_build_initial_params_with_weights_on_the_card_equals_the_cpu(cuda, tmp_
             assert x.is_cuda and x.dtype == y.dtype and torch.equal(x.cpu(), y)
     torch.testing.assert_close(on_card["sd"]["add_text_embeds"].float().cpu(),
                                on_cpu["sd"]["add_text_embeds"].float(), rtol=2 ** -7, atol=0)
+
+
+def test_demo_vae_artifact_loads_onto_the_card(cuda):
+    """runs/demo_vae/vae.npz onto the card (the default device): every
+    leaf equal to the CPU load bit for bit; its VAE(white) latent
+    background within 1e-4 of the CPU's."""
+    import os
+
+    from stable_nerf_tpu_torch import train as cli
+    from stable_nerf_tpu_torch.models.diffusion.vae import vae_load_npz
+    from stable_nerf_tpu_torch.utils.device import disable_tf32
+    from stable_nerf_tpu_torch.utils.tree import tree_leaves
+
+    disable_tf32()
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "runs", "demo_vae", "vae.npz")
+    on_card, cfg, meta = vae_load_npz(path)
+    on_cpu, cfg_cpu, _ = vae_load_npz(path, device="cpu")
+    assert cfg == cfg_cpu and meta["latent_size"] == 16
+    a, b = tree_leaves(on_card), tree_leaves(on_cpu)
+    assert len(a) == len(b) == 156
+    for x, y in zip(a, b):
+        assert x.is_cuda and torch.equal(x.cpu(), y)
+    args = cli.build_parser().parse_args(["--demo", "--vae-checkpoint", path])
+    cli.apply_demo_defaults(args)
+    jc = cli.build_config(args, cfg)
+    card = cli.latent_background(on_card, jc, cuda)
+    cpu = cli.latent_background(on_cpu, jc, torch.device("cpu"))
+    assert max(abs(p - q) for p, q in zip(card, cpu)) <= 1e-4
+
+
+def test_fit_step_scatter_matches_plain(cuda):
+    """One step of scripts/fit_torch_nerf.py on the card at 32² (512 rays,
+    64 march steps: one chunk): the scatter the encode's backward launches,
+    its inputs captured, against the plain version on the same inputs; the
+    step's loss (float32 compute) within 1e-4 of the same step on the CPU."""
+    import chip_smoke
+    from stable_nerf_tpu_torch.models.nerf.network import nerf_init
+    from stable_nerf_tpu_torch.utils.device import disable_tf32
+    from stable_nerf_tpu_torch.utils.tree import tree_map
+
+    disable_tf32()
+    fit = chip_smoke.load_script("fit_torch_nerf")
+    args = fit.build_parser().parse_args(["--size", "32", "--rays-per-batch", "512",
+                                          "--max-steps", "64", "--grid-size", "32",
+                                          "--steps", "1"])
+    cfg = fit.nerf_config(args)
+    captured, wrapper = [], encoding.hash_scatter_add_per_level
+
+    def record(idx, upd, *a, **kw):
+        out = wrapper(idx, upd, *a, **kw)
+        captured.append((idx, upd, a, kw, out))
+        return out
+
+    # one set of weights, grid and draws, made on the CPU and copied to the
+    # card: a seed draws other numbers on each device's generator
+    cpu = torch.device("cpu")
+    params0 = nerf_init(0, cfg, device=cpu)
+    state0 = fit.refresh(fit.init_state(cfg, fit.load_views(args, cpu), cpu), params0, cfg,
+                         generator=torch.Generator().manual_seed(1))
+    g = torch.Generator()
+    losses = []
+    for dev in (cuda, cpu):
+        views = fit.load_views(args, dev)
+        params = tree_map(lambda x: x.to(dev, copy=True), params0)
+        state = type(state0)(*(x.to(dev) for x in state0))
+        opt, sched = fit.make_optimizer(params, args.lr, args.steps, args.lr_decay)
+        idx = torch.randint(0, views["pool_o"].shape[0], (512,), generator=g.manual_seed(2))
+        perturb = torch.rand(512, generator=g.manual_seed(3))
+        before = hash_scatter_add_per_level.launches
+        encoding.hash_scatter_add_per_level = record
+        try:
+            losses.append(float(fit.train_step(
+                params, opt, sched, state, views, cfg, idx.to(dev), perturb.to(dev),
+                bg=args.bg, max_steps=args.max_steps, loss=args.loss, budget=None,
+                compute_dtype=torch.float32)))
+        finally:
+            encoding.hash_scatter_add_per_level = wrapper
+        if dev.type == "cuda":
+            assert hash_scatter_add_per_level.launches == before + 1
+    idx, upd, a, kw, out = captured[0]
+    assert idx.is_cuda and tuple(idx.shape) == (512 * 64, 16, 8)
+    plain = hash_scatter_add_plain(idx, upd, a[0] * a[1], False)
+    scale = torch.zeros_like(plain).index_add_(0, idx.reshape(-1).long(),
+                                               upd.reshape(-1, 2).abs())
+    assert float(((out - plain).abs() / scale.clamp_min(1e-30)).max()) <= 1e-5
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])

@@ -1,8 +1,8 @@
 """The port (stable_nerf_tpu_torch) stands alone: no JAX, nothing of the JAX
 package, none of ``safetensors``, ``transformers`` or PIL (the card's
-machine has none of them), entry points that refuse to fall back to the
-CPU, and a chip smoke script that fails without a card or without the
-package."""
+machine has none of them), in the package, chip_smoke.py and the port's
+scripts; entry points that refuse to fall back to the CPU, and a chip
+smoke script that fails without a card or without the package."""
 
 import os
 import shutil
@@ -22,6 +22,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 chip_smoke.load_floor_script()      # scripts/bench_torch_fused_render_floor.py
+for script in ("fit_torch_nerf", "pretrain_torch_tiny_vae", "fit_torch_latent_ceiling"):
+    chip_smoke.load_script(script)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "stable_nerf_tpu", "safetensors",
                                     "transformers", "PIL"))
@@ -43,7 +45,7 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert out.returncode == 0, out.stderr
     first, names = out.stdout.strip().split("\n")
     n, bad = first.split(" ", 1)
-    assert int(n) >= 48
+    assert int(n) >= 50
     assert bad.strip() == "[]", bad
     for mod in ("ops.compaction", "ops.ssim", "ops.hopper.gather",
                 "training.inference", "utils.losses", "ops.morton",
@@ -52,7 +54,7 @@ def test_port_imports_neither_jax_nor_reference_package():
                 "training.checkpoints", "training.loop", "train", "utils.safetensors",
                 "models.diffusion.weights", "models.diffusion.clip_text",
                 "models.diffusion.clip_vision", "models.diffusion.tokenizer",
-                "data.native_loader"):
+                "data.native_loader", "models.nerf.error_map", "models.nerf.tiny"):
         assert f"stable_nerf_tpu_torch.{mod}" in names.split(), mod
 
 
@@ -74,6 +76,10 @@ def _entry_points():
     from stable_nerf_tpu_torch.models.diffusion.clip_vision import (CLIPVisionConfig,
                                                                     clip_vision_init)
     from stable_nerf_tpu_torch.models.diffusion.weights import load_sdxl
+    from stable_nerf_tpu_torch.models.diffusion.vae import vae_load_npz
+    from stable_nerf_tpu_torch.models.nerf.error_map import error_map_init
+    from stable_nerf_tpu_torch.config import TinyNeRFConfig
+    from stable_nerf_tpu_torch.models.nerf.tiny import tiny_nerf_init
 
     return {
         "nerf_init": lambda: nerf_init(0, NeRFConfig()),
@@ -91,6 +97,10 @@ def _entry_points():
         "load_sdxl": lambda: load_sdxl("no-such-directory"),
         "clip_text_init": lambda: clip_text_init(0, clip_l_config()),
         "clip_vision_init": lambda: clip_vision_init(0, CLIPVisionConfig()),
+        "vae_load_npz": lambda: vae_load_npz(os.path.join(REPO, "runs", "demo_vae",
+                                                          "vae.npz")),
+        "error_map_init": lambda: error_map_init(4),
+        "tiny_nerf_init": lambda: tiny_nerf_init(0, TinyNeRFConfig()),
     }
 
 
@@ -98,7 +108,8 @@ def _entry_points():
                                   "scheduler", "make_train_step", "make_eval_step",
                                   "make_inference_step", "reset_extra_state", "train",
                                   "build_initial_params", "device_prefetch", "cli",
-                                  "load_sdxl", "clip_text_init", "clip_vision_init"])
+                                  "load_sdxl", "clip_text_init", "clip_vision_init",
+                                  "vae_load_npz", "error_map_init", "tiny_nerf_init"])
 def test_entry_points_default_to_cuda_and_refuse_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")

@@ -19,6 +19,8 @@ import json
 import os
 import shutil
 import signal
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -326,8 +328,7 @@ def test_cli_builds_the_configuration_train_py_builds():
 
 @pytest.mark.parametrize("flag", [["--data-parallel"], ["--tensor-parallel", "2"], ["--fsdp"],
                                   ["--sp", "2"], ["--distributed"],
-                                  ["--coordinator", "h:1"], ["--remat"], ["--demo"],
-                                  ["--vae-checkpoint", "x.npz"]])
+                                  ["--coordinator", "h:1"], ["--remat"]])
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit) as e:
         tcli.main(ARGS + flag + ["--device", "cpu"])
@@ -345,6 +346,21 @@ def test_loop_refuses_parallel_and_pretrained_weights():
             tloop.train(tcfg, None, device="cpu", **kw)
     with pytest.raises(KeyError, match="vae"):
         tloop.build_initial_params(tcfg, 0, 1, pretrained_sd={"vae": {}}, device="cpu")
+
+
+def test_summarize_learning_demo_reads_the_port_metrics(runs):
+    """scripts/summarize_learning_demo.py (which imports no JAX) reads the
+    port's metrics.jsonl as it reads the JAX loop's."""
+    out = {}
+    for name in ("jax", "port"):
+        run = subprocess.run([sys.executable, "scripts/summarize_learning_demo.py",
+                              runs[name]["workdir"]], cwd=REPO, capture_output=True,
+                             text=True, timeout=60)
+        assert run.returncode == 0, run.stderr
+        out[name] = run.stdout
+    head = "2 train epochs, 1 inference interleaves"
+    assert out["port"].splitlines()[0] == out["jax"].splitlines()[0] == head
+    assert "inf_psnr" in out["port"] and "deltas first→last:" in out["port"]
 
 
 def test_cli_inference_restores_and_writes_renders(runs, tmp_path, capsys):
