@@ -81,7 +81,19 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                within 1e-3; python -m stable_nerf_tpu_torch.train --dataset
                synthetic --demo --vae-checkpoint runs/demo_vae/vae.npz for 2
                epochs at batch 8, then --inference: per-epoch losses, s an
-               epoch, scatter launches (8 a step), PSNR, peak memory.
+               epoch, scatter launches (8 a step), PSNR, peak memory;
+  sd_scripts   (inside the pretrained phase's span, on its SDXL directory)
+               scripts/validate_torch_sdxl_checkpoint.py (checksums; every
+               check passes but the VAE reconstruction's 20 dB, which seeded
+               weights fail by design) and scripts/run_torch_sd.py
+               --sdxl-checkpoint --steps 50 (reconstruction MSE, cold and
+               steady steps/s, denoised image under chiprun_out/sd_scripts);
+  bench        python bench_torch.py in a process of its own: its last
+               record, every metric finite, none skipped or failed,
+               0 < sd_denoise_mfu <= 1, device_kind this card's, and the
+               scatter kernel launched in the child;
+  profile_sd   scripts/profile_torch_sd_denoise.py --steps 3: device time
+               of a denoise step by bucket, idle share, analytic MFU.
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last the device
 line ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
 
@@ -1315,12 +1327,18 @@ def pretrained(dev, cfg, ckpt_dir):
 
 
 CLI_RUNNER = """
-import json, runpy, sys
+import json, os, runpy, sys
 from stable_nerf_tpu_torch.ops.hopper.scatter import hash_scatter_add_per_level
-sys.argv = ["stable_nerf_tpu_torch.train"] + sys.argv[1:]
+target = sys.argv[1]
 hash_scatter_add_per_level.launches = 0
 try:
-    runpy.run_module("stable_nerf_tpu_torch.train", run_name="__main__", alter_sys=True)
+    if target.endswith(".py"):
+        sys.argv = sys.argv[1:]
+        sys.path.insert(0, os.path.dirname(os.path.abspath(target)))
+        runpy.run_path(target, run_name="__main__")
+    else:
+        sys.argv = [target] + sys.argv[2:]
+        runpy.run_module(target, run_name="__main__", alter_sys=True)
 finally:
     import torch
     print(json.dumps({"cli_counts": {
@@ -1330,14 +1348,15 @@ finally:
 """
 
 
-def run_cli(here, argv, timeout):
-    """``python -m stable_nerf_tpu_torch.train ARGV`` in a process of its own,
-    with the scatter kernel's launch count set to 0 before and read after
-    (and the process's peak device memory; not its peak host RSS, which
-    Linux carries over from this process across the exec).  Returns (row,
+def run_cli(here, argv, timeout, target="stable_nerf_tpu_torch.train"):
+    """``python -m stable_nerf_tpu_torch.train ARGV`` (or the script
+    ``target``, a path ending in .py) in a process of its own, with the
+    scatter kernel's launch count set to 0 before and read after (and the
+    process's peak device memory; not its peak host RSS, which Linux
+    carries over from this process across the exec).  Returns (row,
     stdout)."""
     t = time.perf_counter()
-    out = subprocess.run([sys.executable, "-c", CLI_RUNNER, *argv], cwd=here,
+    out = subprocess.run([sys.executable, "-c", CLI_RUNNER, target, *argv], cwd=here,
                          capture_output=True, text=True, timeout=timeout)
     lines = out.stdout.strip().splitlines()
     counts = next((json.loads(line)["cli_counts"] for line in reversed(lines)
@@ -1579,49 +1598,144 @@ def demo(here, dev):
     return row
 
 
+BENCH_METRICS = ("nerf_train_rays_per_sec_stochastic", "nerf_eval_ms_per_image",
+                 "sd_denoise_ms_per_step", "joint_step_ms", "joint_step_full_sdxl_ms")
+
+
+def last_json(stdout, key):
+    """The last line of ``stdout`` that is a JSON object holding ``key``."""
+    for line in reversed(stdout.strip().splitlines()):
+        if line.startswith("{"):
+            try:
+                obj = json.loads(line)
+            except ValueError:
+                continue
+            if key in obj:
+                return obj
+    return {}
+
+
+def bench(here):
+    """``python bench_torch.py`` in a process of its own, the scatter
+    kernel's launch count set to 0 before and read after; its last record.
+    The headline and every metric of BENCH_METRICS must be finite, no
+    metric skipped or failed, 0 < sd_denoise_mfu ≤ 1, device_kind this
+    card's name, and the child must have launched the kernel."""
+    import torch
+
+    torch.cuda.empty_cache()
+    run, stdout = run_cli(here, [], timeout=1200, target=os.path.join(here, "bench_torch.py"))
+    rec = last_json(stdout, "metric")
+    values = [rec.get("value")] + [rec.get(k) for k in BENCH_METRICS]
+    mfu = rec.get("sd_denoise_mfu")
+    missing = [k for k in rec if k.endswith(("_skipped", "_error"))]
+    row = {"phase": "bench", "rc": run["rc"], "s": run["s"],
+           "scatter_launches": run.get("scatter_launches"), "record": rec,
+           "skipped_or_failed": missing}
+    row["ok"] = bool(run["rc"] == 0 and rec.get("metric") == "nerf_train_rays_per_sec"
+                     and all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+                             for v in values)
+                     and not missing and mfu is not None and 0 < mfu <= 1
+                     and rec.get("device_kind") == torch.cuda.get_device_name(0)
+                     and (run.get("scatter_launches") or 0) > 0)
+    return row
+
+
+def sd_scripts(here, ckpt_dir):
+    """scripts/validate_torch_sdxl_checkpoint.py and scripts/run_torch_sd.py
+    on the pretrained phase's SDXL directory (seeded weights), each in a
+    process of its own.  The validator's checksums are reported; every
+    check must pass but the VAE's reconstruction PSNR above 20 dB, which a
+    random VAE fails by design (its PSNR must be finite).  run_torch_sd's
+    reconstruction MSE must be finite and its denoised image written
+    (``.png.npy`` where PIL is absent)."""
+    import re
+    import shutil
+
+    out = os.path.join(here, "chiprun_out", "sd_scripts")
+    shutil.rmtree(out, ignore_errors=True)
+    scripts = os.path.join(here, "scripts")
+    val, val_log = run_cli(here, ["--checkpoint", ckpt_dir, "--out",
+                                  os.path.join(out, "validate")], timeout=900,
+                           target=os.path.join(scripts, "validate_torch_sdxl_checkpoint.py"))
+    report = {}
+    path = os.path.join(out, "validate", "report.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            report = json.load(f)
+    sd, sd_log = run_cli(here, ["--sdxl-checkpoint", ckpt_dir, "--steps", "50", "--out",
+                                os.path.join(out, "run_sd")], timeout=900,
+                         target=os.path.join(scripts, "run_torch_sd.py"))
+    mse = re.search(r"VAE reconstruction MSE: (\S+)", sd_log)
+    rates = [float(v) for v in re.findall(r"\(([\d.]+) steps/s", sd_log)
+             + re.findall(r"steady-state: ([\d.]+) denoise steps/s", sd_log)]
+    images = sorted(f for f in os.listdir(os.path.join(out, "run_sd"))
+                    if f.startswith("denoised.png")) if os.path.isdir(
+                        os.path.join(out, "run_sd")) else []
+    psnr = report.get("vae", {}).get("reconstruction_psnr_db")
+    row = {"phase": "sd_scripts",
+           "validate": {"rc": val["rc"], "s": val["s"], "report": report,
+                        "tail": val["tail"]},
+           "run_sd": {"rc": sd["rc"], "s": sd["s"], "mse": float(mse.group(1)) if mse else None,
+                      "steps_per_s_cold_steady": rates, "images": images, "tail": sd["tail"]},
+           "expected_failed_checks": ["vae_reconstruction_psnr"]}
+    row["ok"] = bool(
+        val["rc"] == 1 and report.get("failed_checks") == ["vae_reconstruction_psnr"]
+        and psnr is not None and math.isfinite(psnr)
+        and all(f"checksum/{k}" in report for k in ("unet", "vae", "text_encoder",
+                                                   "text_encoder_2"))
+        and sd["rc"] == 0 and mse and math.isfinite(float(mse.group(1))) and images)
+    return row
+
+
+def profile_sd(here):
+    """scripts/profile_torch_sd_denoise.py --steps 3: the denoise step's
+    device time by bucket, its idle share and its analytic MFU (the trace
+    under .cache/, removed after)."""
+    import shutil
+
+    out_dir = os.path.join(here, ".cache", "chip_smoke_profile_sd")
+    run, stdout = run_cli(here, ["--steps", "3", "--outdir", out_dir], timeout=600,
+                          target=os.path.join(here, "scripts", "profile_torch_sd_denoise.py"))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rec = last_json(stdout, "buckets_ms_per_step")
+    row = {"phase": "profile_sd", "rc": run["rc"], "s": run["s"], **rec}
+    row["ok"] = bool(run["rc"] == 0 and rec.get("device_busy_ms_per_step", 0) > 0
+                     and 0 <= rec.get("device_idle_share", -1) < 1
+                     and rec.get("mfu_analytic") and 0 < rec["mfu_analytic"] <= 1)
+    return row
+
+
 def profile_step(state, out_dir, what):
     """One more call of a step (``what``: "joint_step" or "serve_request")
     under torch.profiler: device time by kernel name, the busy share of the
     call's wall time, and the full table in out_dir."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from stable_nerf_tpu_torch.utils.profiling import (chrome_trace_intervals, device_time,
+                                                       trace)
 
     step, params, grid, batch, g = state
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(out_dir, what):
         t = time.perf_counter()
         step(params, grid, batch, generator=g)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    events = prof.events()
-    # device events named like a host op are annotations (e.g. the
-    # optimizer's range), not kernels
-    host_names = {e.name for e in events if e.device_type != DeviceType.CUDA}
-    by_name, spans = {}, []
-    for e in events:
-        if e.device_type != DeviceType.CUDA or e.name in host_names:
-            continue
-        us = e.time_range.elapsed_us()
-        total, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (total + us, count + 1)
-        spans.append((e.time_range.start, e.time_range.end))
-    busy, end = 0.0, -math.inf
-    for a, b in sorted(spans):          # union of the device intervals
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    table = sorted(([n, t / 1e3, c] for n, (t, c) in by_name.items()),
-                   key=lambda r: -r[1])
-    os.makedirs(out_dir, exist_ok=True)
+    # the table below keeps what is read; the trace itself (hundreds of
+    # thousands of events for a serving request) is not kept
+    trace_path = os.path.join(out_dir, what + ".json")
+    dt = device_time(chrome_trace_intervals(trace_path))
+    os.remove(trace_path)
+    table = dt["kernels"]
     path = os.path.join(out_dir, what + "_kernels.json")
     with open(path, "w") as f:
-        json.dump({"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
-                   "launches": len(spans), "kernels_ms_count": table}, f, indent=1)
+        json.dump({"wall_ms": wall_ms, "device_busy_ms": dt["busy_ms"],
+                   "launches": dt["launches"], "kernels_ms_count": table}, f, indent=1)
     return {"phase": "profile", "of": what, "wall_ms": wall_ms,
-            "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1.0 - busy / 1e3 / wall_ms,
-            "kernel_ms_sum": sum(r[1] for r in table), "launches": len(spans),
+            "device_busy_ms": dt["busy_ms"],
+            "device_idle_share": 1.0 - dt["busy_ms"] / wall_ms,
+            "kernel_ms_sum": sum(r[1] for r in table), "launches": dt["launches"],
             "top": [[n[:90], ms, c] for n, ms, c in table[:12]],
             "table": path}
 
@@ -1750,18 +1864,25 @@ def main() -> int:
         emit(phases[-1])
         phases.append(cli(here, ckpt_dir))
         emit(phases[-1])
+        cli_row = phases[-1]
+        phases.append(sd_scripts(here, ckpt_dir))
+        emit(phases[-1])
     finally:
         # ~6.9 GB: never left behind
         import shutil
 
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    cli_row = phases[-1]
     fitted, trained_case = fit_nerf(here, dev)
     emit(fitted)
     cases.append(trained_case)
     demoed = demo(here, dev)
     emit(demoed)
     phases += [fitted, demoed]
+    benched = bench(here)
+    emit(benched)
+    profiled = profile_sd(here)
+    emit(profiled)
+    phases += [benched, profiled]
 
     a, ga = cases[0], gathers[0]
     emit({"kernels": [{
@@ -1775,7 +1896,8 @@ def main() -> int:
                              "cli_objaverse_pretrained":
                                  cli_row["objaverse"]["runs"]["train"].get("scatter_launches"),
                              "fit_nerf": fitted["scatter_launches"],
-                             "demo": demoed["scatter_launches"]},
+                             "demo": demoed["scatter_launches"],
+                             "bench": benched["scatter_launches"]},
         "max_abs_err": a["kernel_vs_plain_max_abs"],
         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"], "library_ms": a["library_ms"],

@@ -1,7 +1,7 @@
 """The port (stable_nerf_tpu_torch) stands alone: no JAX, nothing of the JAX
 package, none of ``safetensors``, ``transformers`` or PIL (the card's
-machine has none of them), in the package, chip_smoke.py and the port's
-scripts; entry points that refuse to fall back to the CPU, and a chip
+machine has none of them) and no pre-port script, in the package,
+chip_smoke.py, bench_torch.py and the port's scripts; entry points that refuse to fall back to the CPU, and a chip
 smoke script that fails without a card or without the package."""
 
 import os
@@ -15,18 +15,25 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import stable_nerf_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
 chip_smoke.load_floor_script()      # scripts/bench_torch_fused_render_floor.py
-for script in ("fit_torch_nerf", "pretrain_torch_tiny_vae", "fit_torch_latent_ceiling"):
+import bench_torch
+for script in ("fit_torch_nerf", "pretrain_torch_tiny_vae", "fit_torch_latent_ceiling",
+               "bench_torch_joint_full_sdxl", "profile_torch_sd_denoise", "run_torch_sd",
+               "validate_torch_sdxl_checkpoint", "bench_torch_batch_sweep",
+               "bench_torch_hybrid_sweep"):
     chip_smoke.load_script(script)
+# the JAX package's root scripts and pre-port scripts/ files
+pre_port = {"bench", "train", "__graft_entry__"} | {
+    f[:-3] for f in os.listdir("scripts") if f.endswith(".py") and "torch" not in f}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "stable_nerf_tpu", "safetensors",
-                                    "transformers", "PIL"))
+                                    "transformers", "PIL") or m in pre_port)
 print(len(names), bad)
 print(" ".join(names))
 """
@@ -80,6 +87,8 @@ def _entry_points():
     from stable_nerf_tpu_torch.models.nerf.error_map import error_map_init
     from stable_nerf_tpu_torch.config import TinyNeRFConfig
     from stable_nerf_tpu_torch.models.nerf.tiny import tiny_nerf_init
+    import bench_torch
+    import chip_smoke
 
     return {
         "nerf_init": lambda: nerf_init(0, NeRFConfig()),
@@ -101,6 +110,15 @@ def _entry_points():
                                                           "vae.npz")),
         "error_map_init": lambda: error_map_init(4),
         "tiny_nerf_init": lambda: tiny_nerf_init(0, TinyNeRFConfig()),
+        "bench_nerf_render": lambda: bench_torch.bench_nerf_render(),
+        "bench_sd_denoise": lambda: bench_torch.bench_sd_denoise(),
+        "bench_joint_full_sdxl_script": lambda: chip_smoke.load_script(
+            "bench_torch_joint_full_sdxl").main([]),
+        "profile_sd_denoise_script": lambda: chip_smoke.load_script(
+            "profile_torch_sd_denoise").main(["--outdir", os.path.join(REPO, "no-such-dir")]),
+        "run_sd_script": lambda: chip_smoke.load_script("run_torch_sd").main(["--tiny"]),
+        "validate_script": lambda: chip_smoke.load_script(
+            "validate_torch_sdxl_checkpoint").main(["--checkpoint", "no-such-directory"]),
     }
 
 
@@ -109,7 +127,10 @@ def _entry_points():
                                   "make_inference_step", "reset_extra_state", "train",
                                   "build_initial_params", "device_prefetch", "cli",
                                   "load_sdxl", "clip_text_init", "clip_vision_init",
-                                  "vae_load_npz", "error_map_init", "tiny_nerf_init"])
+                                  "vae_load_npz", "error_map_init", "tiny_nerf_init",
+                                  "bench_nerf_render", "bench_sd_denoise",
+                                  "bench_joint_full_sdxl_script", "profile_sd_denoise_script",
+                                  "run_sd_script", "validate_script"])
 def test_entry_points_default_to_cuda_and_refuse_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
