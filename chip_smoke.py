@@ -93,7 +93,28 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                0 < sd_denoise_mfu <= 1, device_kind this card's, and the
                scatter kernel launched in the child;
   profile_sd   scripts/profile_torch_sd_denoise.py --steps 3: device time
-               of a denoise step by bucket, idle share, analytic MFU.
+               of a denoise step by bucket, idle share, analytic MFU;
+  remat        the full-width step with ``UNetConfig.remat``: its losses
+               against the plain step's on the same params and draws (equal
+               within 1e-6), the forward-and-backward peaks of both, then 3
+               train steps: ms, peak, scatter launches;
+  dp_train_world1  the full-width step through the data-parallel step at
+               world 1 on NCCL, 3 steps: ms against joint_train's, bytes
+               and calls all-reduced a step, the all-reduce's ms on those
+               gradients alone, scatter launches, peak;
+  dp_train, fsdp_train  two ranks on the one card (two processes of this
+               script, ``--rank-worker``, over gloo, named: NCCL refuses two
+               ranks on one device).  A probe of gloo's
+               all_gather_into_tensor and reduce_scatter_tensor on CUDA
+               tensors; each mode's tiny float32 update against one
+               process's on the global batch of 2 (dp: two accumulated rows,
+               fsdp: the batch of 2; losses within 1e-5, each leaf's update
+               within 1e-3 in L2), then 2 full-width steps a rank: ms,
+               scatter launches, peak, resting bytes.  fsdp_train fails
+               where the probe does;
+  cli_dp       python -m stable_nerf_tpu_torch.train --tiny --data-parallel
+               --fsdp --remat for one epoch (a world of one on NCCL), then
+               --inference.
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last the device
 line ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
 
@@ -1740,6 +1761,436 @@ def profile_step(state, out_dir, what):
             "table": path}
 
 
+# -- training across processes ----------------------------------------------
+
+RANKS = 2                # two ranks on the one card, over gloo
+RANK_STEPS = 2           # full-width steps a rank
+RANK_TIMEOUT_S = 420     # the two-rank launch, all its parts
+RANK_DEVICE = "cuda:0"   # both ranks' device: the one card
+
+
+def flagship_config():
+    """The flagship step's configuration: ``train.py --frozen-bf16`` at
+    full width, trainable scope ``reference``."""
+    from stable_nerf_tpu_torch.config import NeRFConfig, TrainConfig
+    from stable_nerf_tpu_torch.models.diffusion.sd_network import SDNetworkConfig
+    from stable_nerf_tpu_torch.training.joint import JointConfig
+
+    return JointConfig(nerf=NeRFConfig(channel_dim=4), sd=SDNetworkConfig(),
+                       train=TrainConfig(frozen_dtype="bfloat16", max_steps_train=256,
+                                         trainable_scope="reference"))
+
+
+def full_draws(cfg, dev, seed):
+    """Injected draws of a full-width step of one scene (the same numbers
+    for every variant that is compared)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    enc, b = cfg.latent_hw, 1
+    return {"vae_eps": torch.randn((2 * b, 4, enc, enc), generator=g, device=dev),
+            "noise": torch.randn((b, 4, enc, enc), generator=g, device=dev),
+            "timesteps": torch.randint(0, 1000, (b,), generator=g, device=dev),
+            "perturb": torch.rand((2 * b * enc * enc,), generator=g, device=dev)}
+
+
+def timed_steps(step, params, grid, batch, steps, dev, draws=None, generator=None):
+    """``steps`` calls of ``step``; (metrics, host ms of each, K1 launches)."""
+    import torch
+
+    from stable_nerf_tpu_torch.ops.hopper.scatter import hash_scatter_add_per_level
+
+    hash_scatter_add_per_level.launches = 0
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        m = step(params, grid, batch, generator=generator, draws=draws)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append({k: float(v) for k, v in m.items()})
+    return losses, times, hash_scatter_add_per_level.launches
+
+
+def remat_phase(dev, cfg, joint):
+    """The full-width step with ``UNetConfig.remat``: its loss against the
+    plain step's on the same params and draws (forward and backward, no
+    update), then 3 train steps: ms, peak memory, K1 launches."""
+    import dataclasses
+
+    import torch
+
+    from stable_nerf_tpu_torch.training.joint import (forward_iteration, make_optimizer,
+                                                      make_train_step)
+    from stable_nerf_tpu_torch.utils.tree import tree_leaves
+
+    rcfg = dataclasses.replace(cfg, sd=dataclasses.replace(
+        cfg.sd, unet=dataclasses.replace(cfg.sd.unet, remat=True)))
+    params, mask, grid, sched, batch = make_setup(cfg, dev, SEED)
+    draws = full_draws(cfg, dev, SEED + 9)
+    for p, m in zip(tree_leaves(params), tree_leaves(mask)):
+        p.requires_grad_(bool(m) and p.is_floating_point())
+    losses = {}
+    for name, c in (("plain", cfg), ("remat", rcfg)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s, n, _ = forward_iteration(params, grid, batch, c, sched, draws=draws)
+        (s + n).backward()
+        torch.cuda.synchronize()
+        losses[name] = {"sd_loss": float(s), "nerf_loss": float(n),
+                        "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+        for p in tree_leaves(params):
+            p.grad = None
+    opt = make_optimizer(rcfg.train, params, mask)
+    step = make_train_step(rcfg, sched, opt, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    ms, times, launches = timed_steps(step, params, grid, batch, JOINT_STEPS, dev,
+                                      generator=g)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rel = max(abs(losses["remat"][k] - losses["plain"][k]) / abs(losses["plain"][k])
+              for k in ("sd_loss", "nerf_loss"))
+    chunks = 2 * cfg.latent_hw ** 2 * cfg.train.max_steps_train // 2 ** 17
+    row = {"phase": "remat", "losses_same_draws": losses, "loss_rel_err": rel,
+           "tolerance": 1e-6, "step_ms": times, "steady_step_ms": statistics.median(times[1:]),
+           "joint_train_steady_step_ms": joint["steady_step_ms"],
+           "max_memory_allocated": peak,
+           "joint_train_max_memory_allocated": joint["max_memory_allocated"],
+           "scatter_launches": launches, "expected_launches": chunks * JOINT_STEPS,
+           "losses": ms}
+    row["ok"] = bool(rel <= 1e-6 and launches == chunks * JOINT_STEPS
+                     and all(math.isfinite(v) for l in ms for v in l.values()))
+    del params, opt, step, grid, batch, draws
+    torch.cuda.empty_cache()
+    return row
+
+
+def dp_world1(dev, cfg, joint):
+    """The full-width step through the data-parallel step at world 1 on
+    NCCL: step ms against joint_train's, the bytes all-reduced a step, the
+    all-reduce's ms on those gradients alone, K1 launches, peak memory."""
+    import torch
+
+    from stable_nerf_tpu_torch.parallel import (all_reduce_mean_, close_mesh, make_mesh,
+                                                make_parallel_train_step)
+    from stable_nerf_tpu_torch.training.joint import make_optimizer, make_train_step
+
+    mesh = make_mesh(dev)
+    try:
+        params, mask, grid, sched, batch = make_setup(cfg, dev, SEED)
+        opt = make_optimizer(cfg.train, params, mask)
+        step = make_parallel_train_step(make_train_step(cfg, sched, opt, device=dev,
+                                                        mesh=mesh), mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.counts.update(all_reduce_bytes=0, all_reduce_calls=0)
+        g = torch.Generator(device=dev).manual_seed(SEED + 4)
+        losses, times, launches = timed_steps(step, params, grid, batch, JOINT_STEPS, dev,
+                                              generator=g)
+        peak = torch.cuda.max_memory_allocated(dev)
+        counted = dict(mesh.counts)
+        grads = [torch.ones_like(p) for grp in opt.param_groups for p in grp["params"]]
+        reduce_ms = cuda_ms(lambda: all_reduce_mean_(grads, mesh), 5)
+        chunks = 2 * cfg.latent_hw ** 2 * cfg.train.max_steps_train // 2 ** 17
+        row = {"phase": "dp_train_world1", "backend": mesh.backend, "world": mesh.world,
+               "step_ms": times, "steady_step_ms": statistics.median(times[1:]),
+               "joint_train_steady_step_ms": joint["steady_step_ms"],
+               "all_reduce_bytes_per_step": counted["all_reduce_bytes"] // JOINT_STEPS,
+               "all_reduce_calls_per_step": counted["all_reduce_calls"] / JOINT_STEPS,
+               "all_reduce_ms": reduce_ms,
+               "scatter_launches": launches, "expected_launches": chunks * JOINT_STEPS,
+               "max_memory_allocated": peak, "losses": losses}
+        row["ok"] = bool(mesh.backend == "nccl" and launches == chunks * JOINT_STEPS
+                         and all(math.isfinite(v) for l in losses for v in l.values()))
+        del params, opt, step, grid, batch, grads
+    finally:
+        close_mesh()
+    torch.cuda.empty_cache()
+    return row
+
+
+def tiny_rank_inputs(dev):
+    """The tiny f32 parity's weights (built on the CPU, so every process
+    holds the same numbers), a global batch of 2 and its draws."""
+    import torch
+
+    from stable_nerf_tpu_torch.utils.tree import tree_map
+
+    cfg = tiny_joint_config()
+    params, _, grid, _, _ = make_setup(cfg, torch.device("cpu"), SEED)
+    g = torch.Generator().manual_seed(SEED + 11)
+    batch = make_batch(cfg, torch.device("cpu"), g, RANKS)
+    enc = cfg.latent_hw
+    draws = {"vae_eps": torch.randn((2 * RANKS, 4, enc, enc), generator=g),
+             "noise": torch.randn((RANKS, 4, enc, enc), generator=g),
+             "timesteps": torch.tensor([417, 83]),
+             "perturb": torch.rand((2 * RANKS * enc * enc,), generator=g)}
+    to = lambda t: tree_map(lambda x: x.to(dev), t)     # noqa: E731
+    return cfg, to(params), type(grid)(*(x.to(dev) for x in grid)), to(batch), to(draws)
+
+
+def rows_of(tree, rank, world):
+    """Rank ``rank``'s rows of a global batch or its draws (target and
+    reference rows of its samples for the [2B, ...] draws)."""
+    import torch
+
+    out = {}
+    for k, v in tree.items():
+        b = v.shape[0] // (2 if k in ("vae_eps", "perturb") else 1)
+        per = b // world
+        if k in ("vae_eps", "perturb"):
+            v2 = v.reshape(2 * b, -1)
+            v = torch.cat([v2[rank * per:(rank + 1) * per],
+                           v2[b + rank * per:b + (rank + 1) * per]]).reshape(
+                (-1,) + tuple(v.shape[1:]))
+        else:
+            v = v[rank * per:(rank + 1) * per]
+        out[k] = v
+    return out
+
+
+def tiny_reference(dev, mode):
+    """One process's update on the global batch of 2 for ``mode``: dp, the
+    mean of the two rows' gradients (two accumulated calls of one row: the
+    data-parallel step pairs each rank's own rows); fsdp, the step on the
+    batch of 2 (the fully-sharded step pairs over the global batch)."""
+    import dataclasses
+
+    import torch
+
+    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+    from stable_nerf_tpu_torch.training.joint import (joint_trainable_mask, make_optimizer,
+                                                      make_train_step)
+    from stable_nerf_tpu_torch.utils.tree import partition, tree_map
+
+    cfg, params, grid, batch, draws = tiny_rank_inputs(dev)
+    if mode == "dp":
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                 grad_accum_steps=RANKS))
+    mask = joint_trainable_mask(params)
+    opt = make_optimizer(cfg.train, params, mask)
+    step = make_train_step(cfg, DDIMScheduler.create(cfg.sd.scheduler, device=dev), opt,
+                           compute_dtype=torch.float32, device=dev)
+    if mode == "dp":
+        ms = [step(params, grid, rows_of(batch, r, RANKS), draws=rows_of(draws, r, RANKS))
+              for r in range(RANKS)]
+        loss = {k: sum(float(m[k]) for m in ms) / RANKS for k in ms[0]}
+    else:
+        loss = {k: float(v) for k, v in step(params, grid, batch, draws=draws).items()}
+    return loss, tree_map(lambda x: None if x is None else x.detach().cpu(),
+                          partition(params, mask)[0])
+
+
+def compare_updates(got, want, before, lr):
+    """Each trainable leaf's update within 1e-3 of the reference's in L2
+    norm (the color MLP's leaves, whose gradients sit near Adam's eps, held
+    only to lr per entry); returns the worst relative error."""
+    from stable_nerf_tpu_torch.utils.tree import tree_leaves, tree_leaves_with_path
+
+    worst = 0.0
+    for (path, g), w, b in zip(tree_leaves_with_path(got), tree_leaves(want),
+                               tree_leaves(before)):
+        if g is None:
+            continue
+        upd = (w - b).double()
+        err = float(((g - b).double() - upd).norm() / upd.norm().clamp_min(1e-30))
+        if "color_mlp" in path:
+            if float((g - w).abs().max()) > 2 * lr:
+                return math.inf
+            continue
+        worst = max(worst, err)
+    return worst
+
+
+def rank_worker(outdir, argv):
+    """One of the two ranks on the card (``--rank-worker``): the gloo probe
+    on CUDA tensors, then (dp) the tiny f32 step on its row and the
+    full-width steps, then (fsdp, where the probe passed) the same
+    fully sharded; writes ``rank<r>.json`` and its tiny updates."""
+    import torch
+    import torch.distributed as dist
+
+    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+    from stable_nerf_tpu_torch.parallel import (close_mesh, make_mesh,
+                                                make_parallel_train_step,
+                                                place_joint_for_fsdp, replicate)
+    from stable_nerf_tpu_torch.training.joint import (joint_trainable_mask, make_optimizer,
+                                                      make_train_step)
+    from stable_nerf_tpu_torch.utils.device import disable_tf32
+    from stable_nerf_tpu_torch.utils.tree import partition, tree_leaves, tree_map
+
+    disable_tf32()
+    flag = lambda name: argv[argv.index(name) + 1]                 # noqa: E731
+    dev = torch.device(RANK_DEVICE)
+    # NCCL refuses two ranks on one card: gloo, named, carries CUDA tensors
+    mesh = make_mesh(dev, backend="gloo", init_method=f"tcp://{flag('--coordinator')}",
+                     rank=int(flag("--process-id")), world_size=int(flag("--num-processes")))
+    out = {"rank": mesh.rank, "world": mesh.world, "backend": mesh.backend}
+    try:
+        probe = {}
+        x = torch.arange(4, dtype=torch.float32, device=dev) + 10 * mesh.rank
+        for name, call in (
+                ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                    torch.empty(4 * mesh.world, device=dev), x)),
+                ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+                    torch.empty(4 // mesh.world, device=dev), x))):
+            try:
+                call()
+                torch.cuda.synchronize()
+                probe[name] = "ok"
+            except RuntimeError as e:                  # the backend lacks it
+                probe[name] = str(e)[:300]
+        out["probe"] = probe
+        modes = ["dp"] + (["fsdp"] if all(v == "ok" for v in probe.values()) else [])
+        for mode in modes:
+            rec = {}
+            # tiny f32 step on this rank's row
+            cfg, params, grid, batch, draws = tiny_rank_inputs(dev)
+            mask = joint_trainable_mask(params)
+            layout = None
+            if mode == "fsdp":
+                params, layout = place_joint_for_fsdp(params, mesh, min_size=1 << 8)
+            opt = make_optimizer(cfg.train, params, mask)
+            step = make_parallel_train_step(make_train_step(
+                cfg, DDIMScheduler.create(cfg.sd.scheduler, device=dev), opt,
+                compute_dtype=torch.float32, device=dev, fsdp=layout,
+                mesh=mesh), mesh)
+            m = step(params, grid, rows_of(batch, mesh.rank, mesh.world),
+                     draws=rows_of(draws, mesh.rank, mesh.world))
+            rec["tiny_loss"] = {k: float(v) for k, v in m.items()}
+            whole = layout.gather(params, with_grad=False) if layout else params
+            if mesh.rank == 0:
+                torch.save(tree_map(lambda t: None if t is None else t.detach().cpu(),
+                                    partition(whole, mask)[0]),
+                           os.path.join(outdir, f"tiny_{mode}.pt"))
+            del params, opt, step, whole
+            # full width
+            full = flagship_config()
+            params, mask, grid, sched, batch = make_setup(full, dev, SEED)
+            replicate((params, list(grid)), mesh)
+            layout = None
+            if mode == "fsdp":
+                params, layout = place_joint_for_fsdp(params, mesh)
+                rec["sharded_leaves"] = len(layout.leaves)
+            torch.cuda.empty_cache()
+            opt = make_optimizer(full.train, params, mask)
+            step = make_parallel_train_step(make_train_step(
+                full, sched, opt, device=dev, mesh=mesh, fsdp=layout), mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            g = torch.Generator(device=dev).manual_seed(SEED + 4)
+            losses, times, launches = timed_steps(step, params, grid, batch, RANK_STEPS,
+                                                  dev, generator=g)
+            torch.cuda.synchronize()
+            rec.update(step_ms=times, losses=losses, scatter_launches=launches,
+                       max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+                       resting_bytes=torch.cuda.memory_allocated(dev),
+                       param_bytes=sum(x.numel() * x.element_size()
+                                       for x in tree_leaves(params)))
+            out[mode] = rec
+            del params, opt, step, grid, batch, layout
+            torch.cuda.empty_cache()
+    finally:
+        with open(os.path.join(outdir, f"rank{mesh.rank}.json"), "w") as f:
+            json.dump(out, f)
+        close_mesh()
+    return 0
+
+
+def two_ranks(here, dev, cfg, dp1):
+    """``dp_train`` and ``fsdp_train``: two processes on the one card over
+    gloo (chip_smoke.py --rank-worker), checked against one process's
+    updates on the global batch of 2 at the tiny f32 size."""
+    import shutil
+
+    import torch
+
+    from stable_nerf_tpu_torch.train import launch_local
+
+    outdir = os.path.join(here, "chiprun_out", "two_ranks")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    refs = {mode: tiny_reference(dev, mode) for mode in ("dp", "fsdp")}
+    _, before, _, _, _ = tiny_rank_inputs(torch.device("cpu"))
+    from stable_nerf_tpu_torch.training.joint import joint_trainable_mask
+    from stable_nerf_tpu_torch.utils.tree import partition
+
+    before = partition(before, joint_trainable_mask(before))[0]
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rc = launch_local([], RANKS, command=[sys.executable, os.path.join(here, "chip_smoke.py"),
+                                          "--rank-worker", outdir], timeout=RANK_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    ranks = []
+    for r in range(RANKS):
+        path = os.path.join(outdir, f"rank{r}.json")
+        ranks.append(json.load(open(path)) if os.path.exists(path) else {})
+    chunks = 2 * cfg.latent_hw ** 2 * cfg.train.max_steps_train // 2 ** 17
+    rows = []
+    lr = tiny_joint_config().train.lr
+    for mode in ("dp", "fsdp"):
+        recs = [r.get(mode) for r in ranks]
+        row = {"phase": f"{mode}_train", "ranks": RANKS, "backend": "gloo",
+               "launch_rc": rc, "launch_s": wall, "probe": ranks[0].get("probe")}
+        if mode == "dp":
+            row["world1_nccl"] = {k: dp1[k] for k in (
+                "steady_step_ms", "joint_train_steady_step_ms", "all_reduce_bytes_per_step",
+                "all_reduce_ms", "scatter_launches", "max_memory_allocated")}
+        if all(recs):
+            want_loss, want = refs[mode]
+            got = torch.load(os.path.join(outdir, f"tiny_{mode}.pt"), weights_only=False)
+            loss_err = max(abs(recs[0]["tiny_loss"][k] - want_loss[k]) / abs(want_loss[k])
+                           for k in want_loss)
+            upd_err = compare_updates(got, want, before, lr)
+            row.update({
+                "tiny_loss_rel_err": loss_err, "tiny_update_rel_err": upd_err,
+                "tolerance": {"loss": 1e-5, "update_l2": 1e-3},
+                "ranks_agree": recs[0]["tiny_loss"] == recs[1]["tiny_loss"],
+                "per_rank": [{k: v for k, v in rec.items() if k != "losses"}
+                             for rec in recs],
+                "losses": recs[0]["losses"]})
+            row["ok"] = bool(rc == 0 and loss_err <= 1e-5 and upd_err <= 1e-3
+                             and row["ranks_agree"]
+                             and all(rec["scatter_launches"] == chunks * RANK_STEPS
+                                     for rec in recs)
+                             and all(math.isfinite(v) for rec in recs
+                                     for l in rec["losses"] for v in l.values()))
+        else:
+            row["ok"] = False
+        rows.append(row)
+    return rows
+
+
+def cli_dp(here):
+    """``python -m stable_nerf_tpu_torch.train --tiny --dataset synthetic
+    --data-parallel --fsdp --remat`` for one epoch (one card: a world of
+    one on NCCL), then ``--inference`` on its workdir."""
+    import glob
+    import re
+    import shutil
+
+    workdir = os.path.join(here, "chiprun_out", "cli_dp")
+    shutil.rmtree(workdir, ignore_errors=True)
+    common = ["--tiny", "--dataset", "synthetic", "--image-size", "32", "--latent-size", "16",
+              "--workdir", workdir]
+    (train_row, log), (infer_row, _) = (
+        run_cli(here, common + extra, timeout=600)
+        for extra in (["--data-parallel", "--fsdp", "--remat", "--epochs", "1"],
+                      ["--inference"]))
+    renders = glob.glob(os.path.join(workdir, "renders", "denoised_*"))
+    lines = [line for line in log.splitlines() if "data parallel" in line or "fsdp:" in line]
+    steps = [int(m) for m in re.findall(r"(\d+) steps in", log)]
+    row = {"phase": "cli_dp", "runs": {"train": train_row, "inference": infer_row},
+           "log": lines, "epoch_steps": steps,
+           "metrics_jsonl": os.path.exists(os.path.join(workdir, "metrics.jsonl")),
+           "renders": len(renders)}
+    row["ok"] = bool(train_row["rc"] == 0 and infer_row["rc"] == 0 and renders
+                     and any("over nccl, fully sharded" in line for line in lines)
+                     and steps and train_row.get("scatter_launches", 0) > 0)
+    return row
+
+
 def scatter_bench(dev, cfg, smi) -> int:
     """The scatter kernel's cases alone, on the batch a full run makes
     (same seeds, no weights)."""
@@ -1775,12 +2226,20 @@ def main() -> int:
                          "package under DIR, another checkout unpacked below this "
                          "script's directory (e.g. the parent commit's), with this "
                          "script's cases")
+    ap.add_argument("--rank-worker", metavar="DIR",
+                    help="run as one rank of the dp_train/fsdp_train phases (started by "
+                         "this script with the three flags below), writing to DIR")
+    ap.add_argument("--coordinator")
+    ap.add_argument("--num-processes")
+    ap.add_argument("--process-id")
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.rank_worker:
+        return rank_worker(args.rank_worker, sys.argv)
     if args.root:
         if not args.scatter_bench:
             ap.error("--root goes with --scatter-bench")
@@ -1789,10 +2248,7 @@ def main() -> int:
         if os.path.commonpath([root, os.path.realpath(here)]) != os.path.realpath(here):
             ap.error(f"--root must lie below {here}")
         sys.path.insert(0, root)
-    from stable_nerf_tpu_torch.config import NeRFConfig, TrainConfig
-    from stable_nerf_tpu_torch.models.diffusion.sd_network import SDNetworkConfig
     from stable_nerf_tpu_torch.ops.hopper import build
-    from stable_nerf_tpu_torch.training.joint import JointConfig
     from stable_nerf_tpu_torch.utils.device import disable_tf32, resolve_device
     from stable_nerf_tpu_torch.utils.tree import tree_leaves
 
@@ -1818,9 +2274,7 @@ def main() -> int:
           "tf32": [torch.backends.cuda.matmul.allow_tf32,
                    torch.backends.cudnn.allow_tf32]})
 
-    cfg = JointConfig(nerf=NeRFConfig(channel_dim=4), sd=SDNetworkConfig(),
-                      train=TrainConfig(frozen_dtype="bfloat16", max_steps_train=256,
-                                        trainable_scope="reference"))
+    cfg = flagship_config()
     if args.scatter_bench:
         return scatter_bench(dev, cfg, smi)
     t = time.perf_counter()
@@ -1883,6 +2337,19 @@ def main() -> int:
     profiled = profile_sd(here)
     emit(profiled)
     phases += [benched, profiled]
+    # training across processes: remat, DP at world 1 on NCCL, two ranks on
+    # the card over gloo (DP and FSDP), the CLI's parallel flags
+    rematted = remat_phase(dev, cfg, joint)
+    emit(rematted)
+    dp1 = dp_world1(dev, cfg, joint)
+    emit(dp1)
+    dp_row, fsdp_row = two_ranks(here, dev, cfg, dp1)
+    emit(dp_row)
+    emit(fsdp_row)
+    cli_dp_row = cli_dp(here)
+    emit(cli_dp_row)
+    phases += [rematted, dp1, dp_row, fsdp_row, cli_dp_row]
+    per_rank = lambda row: [r.get("scatter_launches") for r in row.get("per_rank", [])]  # noqa: E731
 
     a, ga = cases[0], gathers[0]
     emit({"kernels": [{
@@ -1897,7 +2364,13 @@ def main() -> int:
                                  cli_row["objaverse"]["runs"]["train"].get("scatter_launches"),
                              "fit_nerf": fitted["scatter_launches"],
                              "demo": demoed["scatter_launches"],
-                             "bench": benched["scatter_launches"]},
+                             "bench": benched["scatter_launches"],
+                             "remat": rematted["scatter_launches"],
+                             "dp_train_world1_nccl": dp1["scatter_launches"],
+                             "dp_train_per_rank": per_rank(dp_row),
+                             "fsdp_train_per_rank": per_rank(fsdp_row)
+                             or fsdp_row.get("scatter_launches"),
+                             "cli_dp": cli_dp_row["runs"]["train"].get("scatter_launches")},
         "max_abs_err": a["kernel_vs_plain_max_abs"],
         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"], "library_ms": a["library_ms"],

@@ -13,6 +13,8 @@ find:
               checkpoints and the training loop
   data/       rays, the synthetic/tiny-NeRF loaders, the paired dataset,
               device prefetch
+  parallel/   training across processes: data parallelism over a
+              torch.distributed group, fully-sharded data parallelism
   utils/      losses, devices, parameter trees, timing, debug dumps
   convert.py  parameter trees to and from the JAX package's layout
   train.py    the command line: python -m stable_nerf_tpu_torch.train

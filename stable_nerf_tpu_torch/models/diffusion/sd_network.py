@@ -127,25 +127,33 @@ def decode_latents(params: Dict, latents, cfg: SDNetworkConfig = SDNetworkConfig
 
 
 def embed_conditions(params: Dict, image_embeds, cfg: SDNetworkConfig = SDNetworkConfig(),
-                     views_per_sample: int = 2):
-    """[B·views, cond_channels, latent, latent] → [B, views·tokens, D]."""
+                     views_per_sample: int = 2, pair_tokens=None):
+    """[B·views, cond_channels, latent, latent] → [B, views·tokens, D].
+
+    The reshape pairs consecutive rows of the [B·views, tokens, D] tokens,
+    as the reference does: at B > 1 a sample's tokens come from rows of
+    other samples.  ``pair_tokens`` replaces that reshape (a fully-sharded
+    step pairs over the global batch, ``parallel.fsdp.global_token_pairing``)."""
     x = image_embeds
     if "downsampling" in params:
         x = downsampling_layers_apply(params["downsampling"], x)
     bs = x.shape[0] // views_per_sample
     tokens = image_proj_apply(params["image_proj"], x.reshape(x.shape[0], -1))
+    if pair_tokens is not None:
+        return pair_tokens(tokens)
     return tokens.reshape(bs, views_per_sample * cfg.sd.num_tokens, -1)
 
 
 def sd_forward(params: Dict, noisy_latents, timesteps, image_embeds,
                cfg: SDNetworkConfig = SDNetworkConfig(), *,
-               compute_dtype=torch.float32, capture_ip_attn_maps: bool = False):
+               compute_dtype=torch.float32, capture_ip_attn_maps: bool = False,
+               pair_tokens=None):
     """Noise prediction conditioned only on the ip tokens (reference
     SDNetwork.forward, network.py:191-212).
 
     capture_ip_attn_maps: also return the ip-stream attention maps; the
       return becomes ``(noise_pred, [maps...])``."""
-    ip_tokens = embed_conditions(params, image_embeds, cfg)
+    ip_tokens = embed_conditions(params, image_embeds, cfg, pair_tokens=pair_tokens)
     B = noisy_latents.shape[0]
     te = params["add_text_embeds"]
     out = unet_apply(

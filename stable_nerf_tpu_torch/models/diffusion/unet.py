@@ -1,6 +1,6 @@
 """SDXL UNet2DConditionModel with native two-stream IP-Adapter
 cross-attention (counterpart of stable_nerf_tpu/models/diffusion/unet.py,
-without the tensor/sequence-parallel and remat options).
+without the tensor- and sequence-parallel options).
 
 A cross-attention whose params carry ``to_k_ip``/``to_v_ip`` splits its
 conditioning sequence by position: the last ``ip_num_tokens`` tokens feed
@@ -17,6 +17,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .nn import (conv2d, group_norm, layer_norm, linear, merge_heads, sdpa, silu,
                  split_heads, timestep_embedding, uniform)
@@ -40,6 +41,10 @@ class UNetConfig:
     freq_shift: float = 0.0
     ip_num_tokens: int = 2
     ip_scale: float = 1.0
+    # recompute every resnet and transformer block in the backward pass
+    # (torch.utils.checkpoint): about one more forward of work for none of
+    # the blocks' inner activations held
+    remat: bool = False
 
     @property
     def time_embed_dim(self) -> int:
@@ -269,29 +274,43 @@ def unet_apply(params: Dict, sample: torch.Tensor, timesteps, encoder_hidden_sta
     temb = temb + linear(ae["linear_2"], silu(linear(ae["linear_1"], add)))
 
     attn_maps = [] if capture_ip_attn_maps else None
+    # the maps are appended as the forward runs, and a recomputed block
+    # would append again: capture turns remat off (it is an eval mode)
+    remat = cfg.remat and not capture_ip_attn_maps and torch.is_grad_enabled()
+
+    def resnet(p, x):
+        if remat:
+            return checkpoint(_resnet, p, x, temb, gr, use_reentrant=False)
+        return _resnet(p, x, temb, gr)
+
+    def transformer(p, x):
+        if remat:
+            return checkpoint(_transformer, p, x, context, cfg, gr, use_reentrant=False)
+        return _transformer(p, x, context, cfg, gr, attn_maps)
+
     x = conv2d(params["conv_in"], x)
     skips = [x]
     for block in params["down_blocks"]:
         attns = block["attentions"]
         for j, res in enumerate(block["resnets"]):
-            x = _resnet(res, x, temb, gr)
+            x = resnet(res, x)
             if attns:
-                x = _transformer(attns[j], x, context, cfg, gr, attn_maps)
+                x = transformer(attns[j], x)
             skips.append(x)
         if "downsample" in block:
             x = conv2d(block["downsample"], x, stride=2, padding=1)
             skips.append(x)
     mid = params["mid_block"]
-    x = _resnet(mid["resnets"][0], x, temb, gr)
+    x = resnet(mid["resnets"][0], x)
     if mid["attentions"]:
-        x = _transformer(mid["attentions"][0], x, context, cfg, gr, attn_maps)
-    x = _resnet(mid["resnets"][1], x, temb, gr)
+        x = transformer(mid["attentions"][0], x)
+    x = resnet(mid["resnets"][1], x)
     for block in params["up_blocks"]:
         attns = block["attentions"]
         for j, res in enumerate(block["resnets"]):
-            x = _resnet(res, torch.cat([x, skips.pop()], dim=1), temb, gr)
+            x = resnet(res, torch.cat([x, skips.pop()], dim=1))
             if attns:
-                x = _transformer(attns[j], x, context, cfg, gr, attn_maps)
+                x = transformer(attns[j], x)
         if "upsample" in block:
             x = conv2d(block["upsample"], F.interpolate(x, scale_factor=2,
                                                         mode="nearest"))

@@ -10,9 +10,13 @@ Usage:
   python -m stable_nerf_tpu_torch.train --inference --workdir X # restore + DDIM
   python -m stable_nerf_tpu_torch.train --tiny --dataset synthetic \\
       --image-size 32 --latent-size 16 --device cpu              # smoke run
+  python -m stable_nerf_tpu_torch.train --data-parallel [--fsdp]  # one process a card
+  torchrun --nproc-per-node N -m stable_nerf_tpu_torch.train --distributed [--fsdp]
+  python -m stable_nerf_tpu_torch.train --data-parallel --coordinator HOST:PORT \\
+      --num-processes N --process-id I                           # each process
 
-Flags of paths the port does not have yet exit non-zero and name the
-ROADMAP.md item that will port them.
+``--tensor-parallel`` > 1 and ``--sp`` > 1 are not ported yet: they exit
+non-zero and name the ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
@@ -22,15 +26,11 @@ import dataclasses
 import os
 import sys
 import time
+from typing import Optional
 
 NOT_PORTED = {
-    "--data-parallel": "parallel/",
-    "--tensor-parallel": "parallel/",
-    "--fsdp": "parallel/",
-    "--sp": "parallel/",
-    "--distributed": "parallel/",
-    "--coordinator": "parallel/",
-    "--remat": "parallel/ (U-Net remat)",
+    "--tensor-parallel": "parallel serving and model-axis parallelism (tp.py)",
+    "--sp": "parallel serving and model-axis parallelism (sp.py)",
 }
 
 
@@ -73,14 +73,22 @@ def build_parser():
                    help="NeRF sample budget per step: an int (static), 'auto' "
                         "(re-bucketed at each occupancy refresh), or omitted for "
                         "dense unless the card's memory needs less")
-    p.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="data parallel over every visible card: one process a card "
+                        "(started here unless a launcher or --coordinator started "
+                        "this one), gradients averaged before each update")
     p.add_argument("--tensor-parallel", type=int, default=1,
                    help="model-axis size; only 1 is ported")
-    p.add_argument("--fsdp", action="store_true", help="not ported yet")
+    p.add_argument("--fsdp", action="store_true",
+                   help="fully-shard the SD params + AdamW moments over the data-parallel "
+                        "processes (ZeRO-3: gathered for use, gradients reduce-scattered)")
     p.add_argument("--frozen-bf16", action="store_true",
                    help="store the frozen partition (SDXL U-Net base + VAE) in "
                         "bfloat16 (must match across --resume)")
-    p.add_argument("--remat", action="store_true", help="not ported yet")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the U-Net's resnet and transformer blocks on the "
+                        "backward (torch.utils.checkpoint): ~33%% more U-Net FLOPs for "
+                        "less activation memory")
     p.add_argument("--stochastic", action="store_true",
                    help="one-corner stochastic hash encode throughout training "
                         "(eval renders stay exact)")
@@ -111,8 +119,13 @@ def build_parser():
                         "optimizer + occupancy grid + epoch) and continue")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of train steps 1-4 here")
-    p.add_argument("--distributed", action="store_true", help="not ported yet")
-    p.add_argument("--coordinator", default=None, help="not ported yet")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group torchrun describes (RANK, WORLD_SIZE, "
+                        "LOCAL_RANK, MASTER_ADDR, MASTER_PORT) and train data parallel")
+    p.add_argument("--coordinator", default=None,
+                   help="HOST:PORT of rank 0's store for a process group started by "
+                        "hand (pair with --num-processes/--process-id); implies "
+                        "--distributed")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--tiny", action="store_true",
@@ -138,16 +151,96 @@ def build_parser():
 
 
 def _refused_flags(args) -> list:
-    given = {
-        "--data-parallel": args.data_parallel,
-        "--tensor-parallel": args.tensor_parallel > 1,
-        "--fsdp": args.fsdp,
-        "--sp": args.sp > 1,
-        "--distributed": args.distributed,
-        "--coordinator": args.coordinator is not None,
-        "--remat": args.remat,
-    }
+    given = {"--tensor-parallel": args.tensor_parallel > 1, "--sp": args.sp > 1}
     return [flag for flag, on in given.items() if on]
+
+
+def _default_workdir() -> str:
+    from datetime import datetime
+
+    return f"output_{datetime.now().strftime('%Y%m%d_%H%M%S')}"
+
+
+def free_port() -> int:
+    """A free TCP port on this host, for a local process group's store."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_local(argv, n: int, command=None, timeout: Optional[float] = None) -> int:
+    """Run ``n`` processes of ``command`` (default this module) with
+    ``argv`` and ``--coordinator localhost:PORT --num-processes n
+    --process-id i``, one a card; wait for all and return the first
+    non-zero exit code (0 when all succeed).  A failure, an interrupt or
+    ``timeout`` seconds (then TimeoutError) stops the others: no process
+    outlives this call."""
+    import subprocess
+
+    command = command or [sys.executable, "-m", "stable_nerf_tpu_torch.train"]
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    # the processes share the host's cores (as torchrun sets it)
+    env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // n)))
+    coordinator = f"localhost:{free_port()}"
+    procs = [subprocess.Popen([*command, *argv, "--coordinator", coordinator,
+                               "--num-processes", str(n), "--process-id", str(i)], env=env)
+             for i in range(n)]
+    rc = 0
+    deadline = None if timeout is None else time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p.returncode for p in procs if p.returncode not in (None, 0)]
+            if failed:
+                rc = failed[0]
+                break
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(f"{n} processes of {command} still ran after "
+                                   f"{timeout} s")
+            time.sleep(0.2)
+        rc = rc or next((p.returncode for p in procs if p.returncode), 0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    return rc
+
+
+def join_process_group(args):
+    """The data-parallel world of this process under ``--distributed`` or
+    ``--coordinator`` (its rank's card, NCCL on cards, gloo with
+    ``--device cpu``); None when neither is given."""
+    if not (args.distributed or args.coordinator):
+        return None
+    import torch
+
+    from .parallel.sharding import make_mesh
+
+    if args.coordinator:
+        rank, world = args.process_id, args.num_processes
+        init, local = f"tcp://{args.coordinator}", args.process_id
+    else:
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        init, local = "env://", int(os.environ.get("LOCAL_RANK", rank))
+    device = args.device
+    if device == "cuda":
+        from .utils.device import resolve_device
+
+        resolve_device(device)              # no card: raise, never fall back
+        device = f"cuda:{local % torch.cuda.device_count()}"
+    mesh = make_mesh(device, init_method=init, rank=rank, world_size=world)
+    print(f"distributed: process {mesh.rank}/{mesh.world} on {mesh.device} over "
+          f"{mesh.backend}")
+    return mesh
 
 
 def apply_demo_defaults(args) -> None:
@@ -232,6 +325,9 @@ def build_config(args, vae_cfg=None):
         nerf_cfg = NeRFConfig(channel_dim=4)
         sd_cfg = SDNetworkConfig(sd=SDConfig(latent_size=args.latent_size,
                                              image_size=args.image_size))
+    if args.remat:
+        sd_cfg = dataclasses.replace(sd_cfg, unet=dataclasses.replace(sd_cfg.unet,
+                                                                      remat=True))
     if args.stochastic:
         nerf_cfg = dataclasses.replace(nerf_cfg, hash_stochastic=True,
                                        hash_stochastic_min_level=args.stochastic_min_level)
@@ -272,6 +368,23 @@ def main(argv=None):
     if refused:
         sys.exit("not ported yet: " + "; ".join(
             f"{flag} (ROADMAP.md §1 queue: {NOT_PORTED[flag]})" for flag in refused))
+    if args.coordinator and (args.num_processes is None or args.process_id is None):
+        sys.exit("--coordinator requires --num-processes and --process-id")
+    parallel = args.data_parallel or args.fsdp
+    if parallel and not (args.distributed or args.coordinator or args.inference):
+        # as the JAX CLI's --data-parallel takes every local chip: one
+        # process a visible card, a world of one on a single card or the CPU
+        import torch
+
+        n = torch.cuda.device_count() if args.device == "cuda" else 1
+        if n > 1:
+            argv = list(argv if argv is not None else sys.argv[1:])
+            if not args.workdir:
+                argv += ["--workdir", _default_workdir()]
+            rc = launch_local(argv, n)
+            if rc:
+                sys.exit(rc)
+            return None
     if args.tiny and args.demo:
         sys.exit("--tiny and --demo are distinct presets — pick one")
     if args.vae_checkpoint and not args.demo:
@@ -286,14 +399,32 @@ def main(argv=None):
     if args.resume and not args.workdir:
         sys.exit("--resume requires --workdir (the run directory whose checkpoints "
                  "to continue from)")
-    from datetime import datetime
+    if (args.distributed or args.coordinator) and not (args.workdir or args.inference):
+        sys.exit("--distributed and --coordinator need --workdir: every process "
+                 "writes to one directory")
+    if args.distributed and not args.coordinator and not args.inference and not all(
+            k in os.environ for k in ("RANK", "WORLD_SIZE")):
+        sys.exit("--distributed reads torchrun's RANK and WORLD_SIZE: start the "
+                 "processes with torchrun, or give --coordinator")
+    from .parallel.sharding import close_mesh
 
+    mesh = None if args.inference else join_process_group(args)
+    try:
+        return _run(args, mesh)
+    finally:
+        if mesh is not None:
+            close_mesh()
+
+
+def _run(args, mesh):
+    """main() after the flags are checked: data, weights, then training or
+    inference; ``mesh`` is the process group this process joined, if any."""
     from .data.dataset import StableNeRFDataset
     from .utils.device import disable_tf32, resolve_device
 
-    dev = resolve_device(args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     disable_tf32()
-    workdir = args.workdir or f"output_{datetime.now().strftime('%Y%m%d_%H%M%S')}"
+    workdir = args.workdir or _default_workdir()
     vae_overlay = vae_cfg = None
     if args.demo:
         apply_demo_defaults(args)
@@ -351,16 +482,24 @@ def main(argv=None):
         pretrained = {**(pretrained or {}), "vae": vae_overlay}
 
     if args.inference:
+        rank = (args.process_id if args.coordinator
+                else int(os.environ.get("RANK", 0)) if args.distributed else 0)
+        if rank:
+            print(f"process {rank}: --inference runs on process 0 alone")
+            return None
         run_inference(cfg, dataset, workdir, guidance_scale=args.guidance_scale,
                       save_attn_maps=args.save_attn_maps, pretrained=pretrained,
                       fingerprint=fingerprint, device=dev)
-        return
+        return None
 
     from .training.loop import train
 
-    train(cfg, dataset, workdir=workdir, seed=args.seed, profile_dir=args.profile_dir,
-          resume=args.resume, pretrained_sd=pretrained,
-          pretrained_fingerprint=fingerprint, device=dev)
+    # processes that joined a group train together, data parallel
+    return train(cfg, dataset, workdir=workdir, seed=args.seed,
+                 profile_dir=args.profile_dir, resume=args.resume,
+                 pretrained_sd=pretrained, pretrained_fingerprint=fingerprint,
+                 device=dev, data_parallel=args.data_parallel or args.fsdp,
+                 fsdp=args.fsdp, mesh=mesh)
 
 
 def run_inference(cfg, dataset, workdir, guidance_scale: float = 1.0,

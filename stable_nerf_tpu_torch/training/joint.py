@@ -32,6 +32,8 @@ from ..models.diffusion.sd_network import trainable_mask as sd_trainable_mask
 from ..models.nerf.grid import OccupancyGridState
 from ..models.nerf.renderer import render
 from ..ops.compaction import suggest_sample_budget
+from ..parallel.fsdp import global_token_pairing
+from ..parallel.sharding import all_reduce_mean_
 from ..utils.device import resolve_device
 from ..utils.losses import l1_loss, mse_loss
 from ..utils.tree import tree_leaves, tree_map
@@ -145,13 +147,16 @@ def forward_iteration(params: Dict, grid_state: OccupancyGridState, batch: Dict,
                       train: bool = True, compute_dtype=torch.bfloat16,
                       sample_budget: Optional[int] = None,
                       generator: Optional[torch.Generator] = None,
-                      draws: Optional[Dict[str, torch.Tensor]] = None):
+                      draws: Optional[Dict[str, torch.Tensor]] = None,
+                      pair_tokens: Optional[Callable] = None):
     """One joint forward pass → (sd_loss, nerf_loss, aux).
 
     draws: optional injected random numbers — ``vae_eps`` [2B, 4, h, w]
       standard normal, ``noise`` [B, 4, h, w], ``timesteps`` [B] int and
       ``perturb`` [2B·rays] uniform; any that is missing is drawn from
       ``generator``.
+    pair_tokens: ``sd_network.embed_conditions``' pairing of the ip tokens,
+      where it is not the local reshape.
     """
     draws = draws or {}
 
@@ -221,7 +226,7 @@ def forward_iteration(params: Dict, grid_state: OccupancyGridState, batch: Dict,
 
     # 7-8. U-Net prediction + diffusion loss
     noise_pred = sd_forward(params["sd"], noisy_latents, timesteps, image_embeds,
-                            cfg.sd, compute_dtype=compute_dtype)
+                            cfg.sd, compute_dtype=compute_dtype, pair_tokens=pair_tokens)
     sd_loss = mse_loss(noise_pred.float(), noise)
     aux = {"pred_target_latent": pred_target, "weights_sum": out["weights_sum"],
            "noisy_latents": noisy_latents, "noise_pred": noise_pred}
@@ -295,7 +300,7 @@ def make_train_step(cfg: JointConfig, scheduler: DDIMScheduler,
                     lr_scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
                     sample_budget: Optional[int] = None,
                     compute_dtype=torch.bfloat16, with_vis: bool = False,
-                    device: Optional[torch.device] = None):
+                    device: Optional[torch.device] = None, mesh=None, fsdp=None):
     """The joint train step: forward, backward into the trainable leaves,
     and an AdamW update every ``cfg.train.grad_accum_steps`` calls (the
     mean of the accumulated gradients, as optax.MultiSteps), after which
@@ -308,35 +313,60 @@ def make_train_step(cfg: JointConfig, scheduler: DDIMScheduler,
     latents, "pred": noise prediction})``, the tensors the reference dumps
     for inspection.  Runs on ``device`` (default cuda) and refuses a batch
     elsewhere.
+
+    ``mesh`` (``parallel.make_mesh``): the step of one data-parallel rank
+    (the JAX step's ``pmean_axis``).  At each update every trainable
+    gradient, the NeRF's included, is averaged over the ranks, and each
+    call's three losses are too.  ``fsdp`` (``parallel.place_joint_for_fsdp``'s
+    layout, over ``params`` as it returned them): the step gathers the
+    sharded leaves for use and reduce-scatters their gradients to the
+    slices; the other gradients are averaged as under ``mesh``.  It computes
+    the global batch's step, as the JAX package's GSPMD step does: the ip
+    tokens are paired over the global batch (``embed_conditions``).
     """
     dev = resolve_device(device)
     if lr_scheduler is None and cfg.train.lr_schedule != "constant":
         raise ValueError(f"lr_schedule {cfg.train.lr_schedule!r} needs the "
                          "lr_scheduler of make_lr_scheduler")
+    pair_tokens = None
+    if fsdp is not None:
+        mesh = fsdp.mesh
+        if mesh.world > 1:
+            pair_tokens = global_token_pairing(mesh)
     accum = cfg.train.grad_accum_steps
     calls = [0]
 
     def step(params, grid_state, batch, generator=None, draws=None):
         check_batch_device(batch, dev)
+        used = fsdp.gather(params) if fsdp is not None else params
         sd_loss, nerf_loss, aux = forward_iteration(
-            params, grid_state, batch, cfg, scheduler, train=True,
+            used, grid_state, batch, cfg, scheduler, train=True,
             compute_dtype=compute_dtype, sample_budget=sample_budget,
-            generator=generator, draws=draws)
+            generator=generator, draws=draws, pair_tokens=pair_tokens)
         total = sd_loss + nerf_loss
         total.backward()
+        if fsdp is not None:
+            fsdp.reduce_scatter_grads(used, params)
+        del used
         calls[0] += 1
         if calls[0] % accum == 0:
+            with_grad = [p for group in optimizer.param_groups for p in group["params"]
+                         if p.grad is not None]
+            if mesh is not None:
+                # the slices' gradients are averaged already
+                all_reduce_mean_([p.grad for p in with_grad
+                                  if fsdp is None or not fsdp.is_shard(p)], mesh)
             if accum > 1:
-                for group in optimizer.param_groups:
-                    for p in group["params"]:
-                        if p.grad is not None:
-                            p.grad.div_(accum)
+                for p in with_grad:
+                    p.grad.div_(accum)
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
             if lr_scheduler is not None:
                 lr_scheduler.step()
-        metrics = {"loss": total.detach(), "sd_loss": sd_loss.detach(),
-                   "nerf_loss": nerf_loss.detach()}
+        losses = torch.stack([total.detach(), sd_loss.detach(), nerf_loss.detach()])
+        if mesh is not None:
+            all_reduce_mean_([losses], mesh)
+        metrics = dict(zip(("loss", "sd_loss", "nerf_loss"), losses.unbind()))
         if with_vis:
             return metrics, {"latents": aux["noisy_latents"].detach(),
                              "pred": aux["noise_pred"].detach()}

@@ -1,5 +1,6 @@
-"""The joint Stable-NeRF training loop on one device (counterpart of
-stable_nerf_tpu/training/loop.py; reference train.py:110-319).
+"""The joint Stable-NeRF training loop (counterpart of
+stable_nerf_tpu/training/loop.py; reference train.py:110-319), on one
+device or as one rank of a data-parallel or fully-sharded world.
 
 Per epoch: refresh the occupancy grid, run train steps over the
 prefetched train split, validate, run DDIM inference on the test split
@@ -9,10 +10,10 @@ stop that saves first, metrics in ``metrics.jsonl``, the occupancy-driven
 sample budgets and the stochastic-encode warm-up.
 
 Pretrained SDXL weights (``models.diffusion.weights.load_sdxl``) overlay
-the random init leaf by leaf in ``build_initial_params``.  The data-,
-tensor- and fully-sharded paths of the JAX loop are not ported yet.  A
-restore loads on the CPU and copies into the live tensors, then
-into the optimizer, so the card never holds the state twice.
+the random init leaf by leaf in ``build_initial_params``.  A restore loads
+on the CPU and copies into the live tensors, then into the optimizer, so
+the card never holds the state twice.  The JAX loop's tensor-parallel
+path is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.dataset import iterate, split_dataset
 from ..data.prefetch import device_prefetch
@@ -36,6 +38,9 @@ from ..models.diffusion.sd_network import init_ip_from_unet, sd_network_init
 from ..models.nerf.grid import grid_init, mark_untrained_grid, update_extra_state
 from ..models.nerf.network import nerf_density, nerf_init
 from ..ops.compaction import suggest_sample_budget
+from ..parallel.fsdp import place_joint_for_fsdp
+from ..parallel.sharding import (barrier, close_mesh, make_mesh, make_parallel_train_step,
+                                 process_shard_indices, replicate)
 from ..utils.device import resolve_device
 from ..utils.profiling import StepTimer, device_memory_stats
 from ..utils.tree import dealias, partition, tree_leaves, tree_map
@@ -47,8 +52,8 @@ from .joint import (JointConfig, cast_frozen, derive_train_sample_budget,
                     device_hbm_limit, eval_budget_for_occupancy, joint_trainable_mask,
                     make_eval_step, make_lr_scheduler, make_optimizer, make_train_step)
 
-NOT_PORTED_PARALLEL = ("is not ported yet: ROADMAP.md §1 queue, parallel/ "
-                       "(DDP, FSDP, tensor and sequence parallelism)")
+NOT_PORTED_MODEL_AXIS = ("is not ported yet: ROADMAP.md §1 queue, parallel serving "
+                         "and model-axis parallelism (tp.py, sp.py)")
 
 
 def _install_sigterm_flag():
@@ -192,24 +197,54 @@ def train(cfg: JointConfig, dataset, *, workdir: str = "output", seed: int = 0,
     the recorded epoch.  SIGTERM stops the loop at the next batch boundary
     after a resumable checkpoint is saved.  ``profile_dir``: a
     ``torch.profiler`` trace of steps 1-4 of the first epoch run, written
-    there as ``trace.json``."""
-    if data_parallel or tensor_parallel > 1 or fsdp or mesh is not None:
-        raise NotImplementedError("multi-device training " + NOT_PORTED_PARALLEL)
+    there as ``trace.json``.
+
+    ``data_parallel`` (or a ``mesh`` from ``parallel.make_mesh``): this
+    process is one rank of a data-parallel world (a world of one where no
+    process group is initialized).  Each rank reads its own
+    ``process_shard_indices`` slice of the train split, ``batch_size`` rows
+    a step (the global batch is ``batch_size × world``), and every update
+    applies the gradients averaged over the ranks, the NeRF's included.
+    Params, optimizer and grid stay equal on every rank (the grid is
+    broadcast from rank 0 after each refresh).  Rank 0 alone logs, writes
+    ``metrics.jsonl``, runs the interleaved inference and writes the
+    checkpoints, in the single-device format.  ``fsdp``: the SD tree and
+    its AdamW moments are sharded over the ranks as well
+    (``parallel.fsdp``), gathered whole for validation, inference and
+    checkpoints; the returned params are whole.  ``tensor_parallel`` > 1
+    is not ported yet."""
+    if tensor_parallel > 1:
+        raise NotImplementedError(f"tensor_parallel={tensor_parallel} "
+                                  + NOT_PORTED_MODEL_AXIS)
     dev = resolve_device(device)
+    # a world of one made here is closed here; a launcher's group is adopted
+    own_mesh = mesh is None and (data_parallel or fsdp) and not dist.is_initialized()
+    if mesh is None and (data_parallel or fsdp):
+        mesh = make_mesh(dev)
+    if mesh is not None:
+        dev = mesh.device
     preempt_flag, uninstall = _install_sigterm_flag()
     try:
         return _train_impl(cfg, dataset, workdir=workdir, seed=seed, epochs=epochs,
                            pretrained_sd=pretrained_sd, log_fn=log_fn, resume=resume,
                            profile_dir=profile_dir, preempt_flag=preempt_flag,
-                           pretrained_fingerprint=pretrained_fingerprint, dev=dev)
+                           pretrained_fingerprint=pretrained_fingerprint, dev=dev,
+                           mesh=mesh, fsdp=fsdp)
     finally:
         uninstall()
+        if own_mesh:
+            close_mesh()
 
 
 def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
                 epochs: Optional[int], pretrained_sd: Optional[Dict], log_fn,
                 resume: bool, profile_dir: Optional[str], preempt_flag: Dict,
-                pretrained_fingerprint: Optional[Dict], dev: torch.device):
+                pretrained_fingerprint: Optional[Dict], dev: torch.device,
+                mesh=None, fsdp: bool = False):
+    rank0 = mesh is None or mesh.rank == 0
+    world = 1 if mesh is None else mesh.world
+    if not rank0:
+        log_fn = lambda *a, **k: None      # noqa: E731 — rank 0 alone logs
     os.makedirs(workdir, exist_ok=True)
 
     def log_hbm(stage):
@@ -221,6 +256,16 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
                    f"peak={s['peak_bytes_in_use'] / 2 ** 30:.2f} GB "
                    f"limit={s['bytes_limit'] / 2 ** 30:.2f} GB")
 
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def wait_all():
+        """This rank's device work done, then every rank's."""
+        sync()
+        if mesh is not None:
+            barrier(mesh)
+
     scheduler = DDIMScheduler.create(cfg.sd.scheduler, device=dev)
     had_pretrained = pretrained_sd is not None
     params = build_initial_params(cfg, seed, seed + 1, pretrained_sd, device=dev,
@@ -231,14 +276,22 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
         grid_init(cfg.nerf, device=dev),
         torch.as_tensor(dataset.all_poses(), dtype=torch.float32, device=dev),
         dataset.intrinsic, cfg.nerf)
+    if mesh is not None:
+        # every rank starts from rank 0's bits
+        replicate((params, list(grid_state)), mesh)
+        log_fn(f"data parallel: rank {mesh.rank} of {world} on {dev} over "
+               f"{mesh.backend}" + (", fully sharded" if fsdp else ""))
     trainable_share = float((grid_state.density_grid >= 0).float().mean())
     log_fn(f"grid: {trainable_share:.4f} of the cells seen by a camera")
 
     mask = joint_trainable_mask(params, cfg.train.trainable_scope)
-    optimizer = make_optimizer(cfg.train, params, mask)
-    lr_scheduler = make_lr_scheduler(cfg.train, optimizer)
-
-    ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"))
+    ckpt_dir = os.path.join(workdir, "checkpoints")
+    if rank0:                  # rank 0 sweeps the directory before the others look
+        ckpt = CheckpointManager(ckpt_dir)
+    if mesh is not None:
+        barrier(mesh)
+    if not rank0:
+        ckpt = CheckpointManager(ckpt_dir)
     t_only, ckpt_fmt = _resolve_ckpt_format(ckpt, cfg, seed, had_pretrained, resume,
                                             log_fn, fingerprint=pretrained_fingerprint)
     if t_only:
@@ -251,19 +304,44 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
             log_fn("checkpoints: frozen checksum verified")
         ckpt_fmt["frozen_checksum"] = fsum
 
+    nbytes = lambda xs: sum(x.numel() * x.element_size() for x in xs    # noqa: E731
+                            if isinstance(x, torch.Tensor))
+    # the whole tree: what a step holds of the params (under FSDP, gathered)
+    whole_param_bytes = nbytes(tree_leaves(params))
+    layout = None
+    if fsdp:
+        params, layout = place_joint_for_fsdp(params, mesh)
+        log_fn(f"fsdp: {len(layout.leaves)} SD leaves sharded over {world} ranks; "
+               f"{nbytes(tree_leaves(params))} of {whole_param_bytes} param bytes "
+               f"held by a rank")
+    optimizer = make_optimizer(cfg.train, params, mask)
+    lr_scheduler = make_lr_scheduler(cfg.train, optimizer)
+
+    def whole_params(tree):
+        """``tree`` with its sharded leaves gathered (every rank calls it)."""
+        return layout.gather(tree, with_grad=False) if layout is not None else tree
+
     def save_ckpt(step_num: int, wait: bool = False):
+        """Rank 0 writes the single-device format; under FSDP every rank
+        first joins the gathers."""
         p, pk = params, "params"
         if t_only:
             p, _ = partition(p, mask)
             pk = "trainable"
         t0 = time.perf_counter()
-        opt_state = {"optimizer": optimizer.state_dict(),
-                     "lr_scheduler": lr_scheduler.state_dict()}
-        if ckpt.save(step_num, p, opt_state, grid_state, extra={"epoch": step_num},
-                     wait=wait, params_key=pk, fmt=ckpt_fmt):
+        p = whole_params(p)
+        opt_sd = (layout.optimizer_state_dict(optimizer) if layout is not None
+                  else optimizer.state_dict())
+        opt_state = {"optimizer": opt_sd, "lr_scheduler": lr_scheduler.state_dict()}
+        if rank0 and ckpt.save(step_num, p, opt_state, grid_state,
+                               extra={"epoch": step_num}, wait=wait, params_key=pk,
+                               fmt=ckpt_fmt):
             size = os.path.getsize(os.path.join(ckpt.directory, f"{step_num}.pt"))
             log_fn(f"checkpoint step {step_num} saved: {size} bytes in "
                    f"{time.perf_counter() - t0:.3f} s")
+        del p, opt_state, opt_sd
+        if mesh is not None:
+            barrier(mesh)
 
     start_epoch = 0
     if resume:
@@ -274,10 +352,21 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
             t0 = time.perf_counter()
             pk = "trainable" if t_only else "params"
             live = partition(params, mask)[0] if t_only else params
-            state = ckpt.restore(template={pk: live, "opt_state": None,
-                                           "grid_state": grid_state, "extra": None})
+            template = {pk: live, "opt_state": None, "grid_state": grid_state,
+                        "extra": None}
+            if layout is None:
+                state = ckpt.restore(template=template)
+            else:
+                # a whole (single-device) checkpoint: cut each sharded leaf
+                # and moment to this rank's block
+                raw = ckpt.restore()
+                raw[pk] = layout.shard_like(raw[pk])
+                state = copy_into(template, raw)
             grid_state = state["grid_state"]
-            optimizer.load_state_dict(state["opt_state"]["optimizer"])
+            if layout is None:
+                optimizer.load_state_dict(state["opt_state"]["optimizer"])
+            else:
+                layout.load_optimizer_state_dict(optimizer, state["opt_state"]["optimizer"])
             lr_scheduler.load_state_dict(state["opt_state"]["lr_scheduler"])
             start_epoch = int(state["extra"].get("epoch", 0))
             del state
@@ -298,9 +387,12 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
                 # the schedule decides the encode mode outright
                 step_cfg = dataclasses.replace(cfg, nerf=dataclasses.replace(
                     cfg.nerf, hash_stochastic=stochastic))
-            step_cache[(budget, stochastic)] = make_train_step(
+            step = make_train_step(
                 step_cfg, scheduler, optimizer, lr_scheduler=lr_scheduler,
-                sample_budget=budget, with_vis=with_vis, device=dev)
+                sample_budget=budget, with_vis=with_vis, device=dev, mesh=mesh,
+                fsdp=layout)
+            step_cache[(budget, stochastic)] = (step if mesh is None
+                                                else make_parallel_train_step(step, mesh))
         return step_cache[(budget, stochastic)]
 
     batch_size = cfg.train.batch_size
@@ -309,13 +401,13 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
         # no budget given: dense unless the step would not fit the card
         limit = device_hbm_limit(dev)
         if limit:
-            nbytes = lambda xs: sum(x.numel() * x.element_size() for x in xs
-                                    if isinstance(x, torch.Tensor))
+            # AdamW holds two float32 moments a trainable leaf (of its slice
+            # under FSDP, where the slices rest beside the gathered tree)
             trainable = [x for x in tree_leaves(partition(params, mask)[0])
                          if isinstance(x, torch.Tensor) and x.is_floating_point()]
-            # AdamW holds two float32 moments a trainable leaf
-            state_bytes = (nbytes(tree_leaves(params)) + 2 * nbytes(trainable)
-                           + nbytes(grid_state))
+            state_bytes = whole_param_bytes + 2 * nbytes(trainable) + nbytes(grid_state)
+            if layout is not None:
+                state_bytes += nbytes(tree_leaves(params))
             cur_budget = derive_train_sample_budget(
                 2 * batch_size * cfg.latent_hw ** 2, cfg.train.max_steps_train,
                 state_bytes, limit)
@@ -347,17 +439,27 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                 for k, v in batch.items()}
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+    def should_stop():
+        """The SIGTERM flag; the ranks agree on it (a signal reaches them at
+        different times, and a lone early exit would hang the others' next
+        collective)."""
+        if world == 1:
+            return preempt_flag["set"]
+        flag = torch.tensor([float(preempt_flag["set"])], device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=mesh.group)
+        return bool(flag.item())
 
     tr_idx, va_idx, te_idx = split_dataset(len(dataset), 0.8, 0.1, seed=seed)
+    if world > 1:
+        tr_idx = tr_idx[process_shard_indices(len(tr_idx), mesh)]
     epochs = epochs if epochs is not None else cfg.train.epochs
     history = []
     timer = StepTimer()
     metrics_path = os.path.join(workdir, "metrics.jsonl")
     # host RNG of the vis dumps, apart from the training draws
     vis_rng = random.Random(seed + 17)
+    # the stream every rank shares (grid refresh, validation; under a mesh
+    # each step folds it with the rank)
     generator = torch.Generator(device=dev).manual_seed(_stream_seed(seed, start_epoch))
     rays_per_step = 2 * batch_size * cfg.latent_hw ** 2
     preempted = False
@@ -368,6 +470,8 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
         t0 = time.perf_counter()
         grid_state = update_extra_state(grid_state, density_fn, cfg.nerf,
                                         generator=generator)
+        if mesh is not None:
+            replicate(list(grid_state), mesh)
         # one host read a refresh: it sets the train and eval budgets
         occ_frac = float(grid_state.occ.float().mean())
         log_fn(f"epoch {epoch}: grid refresh {(time.perf_counter() - t0) * 1e3:.1f} ms, "
@@ -387,11 +491,12 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
         for i, batch in enumerate(device_prefetch(
                 iterate(dataset, tr_idx, batch_size, shuffle=True, seed=seed + epoch),
                 device=dev)):
-            if preempt_flag["set"]:
+            if should_stop():
                 preempted = True
                 break
-            # trace a few steady steps of the first epoch run (step 0 warms up)
-            if profile_dir and epoch == start_epoch:
+            # trace a few steady steps of the first epoch run (step 0 warms
+            # up); rank 0 alone writes the trace
+            if profile_dir and epoch == start_epoch and rank0:
                 if i == 1:
                     activities = [torch.profiler.ProfilerActivity.CPU]
                     if dev.type == "cuda":
@@ -408,19 +513,23 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
             out = step_fn(params, grid_state, batch, generator=generator)
             if with_vis:
                 m, vis = out
-                # an independent draw a tensor; a copy only when sampled
+                # an independent draw a tensor; a copy only when sampled;
+                # rank 0 dumps its own rows
                 for prefix, tensor in vis.items():
-                    sample_save_for_vis(prefix, tensor, cfg.train.vis_sample_prob,
-                                        directory=os.path.join(workdir, "visualizations"),
-                                        rng=vis_rng)
+                    if rank0:
+                        sample_save_for_vis(prefix, tensor, cfg.train.vis_sample_prob,
+                                            directory=os.path.join(workdir,
+                                                                   "visualizations"),
+                                            rng=vis_rng)
             else:
                 m = out
             train_metrics.append(m)
-        # the steps return before the card finishes them: wait before the clock
-        sync()
+        # the steps return before the card finishes them, and the epoch ends
+        # when the slowest rank's does: wait before the clock
+        wait_all()
         train_wall = time.perf_counter() - t_train0
-        timer.observe(steps=len(train_metrics),
-                      rays=rays_per_step * len(train_metrics), seconds=train_wall)
+        epoch_rays = rays_per_step * world * len(train_metrics)
+        timer.observe(steps=len(train_metrics), rays=epoch_rays, seconds=train_wall)
         if profiler is not None:        # an epoch shorter than the trace window
             sync()
             profiler.stop()
@@ -439,15 +548,21 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
                        f"committed; exiting cleanly")
             break
 
+        run_val = cfg.train.val_every > 0 and (epoch % cfg.train.val_every == 0
+                                               or epoch == epochs - 1)
+        run_infer = (cfg.train.inference_every > 0
+                     and (epoch + 1) % cfg.train.inference_every == 0 and len(te_idx) > 0)
+        # validation and inference read the whole tree: gathered once under FSDP
+        eval_params = whole_params(params) if run_val or run_infer else None
+
         val_metrics = []
-        if cfg.train.val_every > 0 and (epoch % cfg.train.val_every == 0
-                                        or epoch == epochs - 1):
+        if run_val:
             # validation renders target + reference: 2B views
             t0 = time.perf_counter()
             eval_fn = eval_for_budget(eval_budget_for_occupancy(
                 occ_frac, 2 * batch_size * cfg.latent_hw ** 2, cfg.train))
             for batch in iterate(dataset, va_idx, batch_size):
-                val_metrics.append(eval_fn(params, grid_state, to_device(batch),
+                val_metrics.append(eval_fn(eval_params, grid_state, to_device(batch),
                                            generator=generator))
             sync()
             log_fn(f"epoch {epoch}: validation {len(val_metrics)} batches in "
@@ -465,7 +580,6 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
         tr_mean = epoch_means(train_metrics)
         va_mean = epoch_means(val_metrics)
         nan = float("nan")
-        epoch_rays = rays_per_step * len(train_metrics)
         record = {
             "epoch": epoch,
             "train_loss": tr_mean.get("loss", nan),
@@ -481,21 +595,22 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
             "elapsed_s": round(time.perf_counter() - t_loop0, 1),
         }
         history.append(record)
-        with open(metrics_path, "a") as f:
-            f.write(json.dumps(record) + "\n")
+        if rank0:
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps(record) + "\n")
         log_fn(f"epoch {epoch}: train {record['train_loss']:.4f} "
                f"val {record['val_loss']:.4f} ({record['rays_per_sec']:.0f} rays/s, "
                f"{len(train_metrics)} steps in {train_wall:.3f} s)")
 
-        if (cfg.train.inference_every > 0 and (epoch + 1) % cfg.train.inference_every == 0
-                and len(te_idx) > 0):
+        if run_infer and rank0:
             # inference renders the 2 target views of a batch
             t0 = time.perf_counter()
             infer_fn = infer_for_budget(eval_budget_for_occupancy(
                 occ_frac, 2 * cfg.latent_hw ** 2, cfg.train))
             inf_metrics = []
             for i, batch in enumerate(iterate(dataset, te_idx, 2)):
-                out = infer_fn(params, grid_state, to_device(batch), generator=generator)
+                out = infer_fn(eval_params, grid_state, to_device(batch),
+                               generator=generator)
                 inf_metrics.append({
                     "psnr": float(out["psnr"].float().mean()),
                     "latent_psnr": float(out["latent_psnr"].float().mean()),
@@ -514,6 +629,9 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
                     inf_record[f"inference_{k}"] = float(np.mean([m[k] for m in inf_metrics]))
                 with open(metrics_path, "a") as f:
                     f.write(json.dumps(inf_record) + "\n")
+        del eval_params
+        if mesh is not None and run_infer:
+            barrier(mesh)
 
         if cfg.train.checkpoint_every > 0 and (epoch + 1) % cfg.train.checkpoint_every == 0:
             save_ckpt(epoch + 1)
@@ -523,4 +641,4 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
         # rewrite the checkpoint it restored
         save_ckpt(epochs, wait=True)
     ckpt.wait_until_finished()
-    return params, grid_state, history
+    return whole_params(params), grid_state, history

@@ -10,8 +10,9 @@ card.
   records every metric, a failing metric records its error, and the
   merges read the port's ``*_torch.json`` and demo workdir, never the TPU's
   records.
-* The sweeps refuse to write the TPU's records; the full-SDXL bench
-  refuses ``--remat``; the denoise profile's buckets and its
+* The sweeps refuse to write the TPU's records; the full-SDXL bench's
+  ``--remat`` builds the remat U-Net and counts its FLOPs × 4/3, as
+  bench_joint_full_sdxl.py does; the denoise profile's buckets and its
   ``--reanalyze`` of a saved trace; the profiling helpers' busy time.
 """
 
@@ -243,10 +244,22 @@ def test_batch_sweep_merges_rows_by_batch(tmp_path, monkeypatch):
                     {"batch": 2, "new": True}]
 
 
-def test_full_sdxl_bench_refuses_remat(capsys):
+@pytest.mark.parametrize("batch", [1, 4])
+def test_full_sdxl_bench_remat_config_and_flops(batch):
+    """--remat reaches the step's U-Net configuration, and the U-Net FLOPs
+    of a step grow by 4/3 (the recomputed forward), as the JAX script's
+    ``unet_flops *= 4/3``; the plain count is 3 × the analytic forward."""
+    from stable_nerf_tpu_torch.models.diffusion.unet import sdxl_unet_config
+    from stable_nerf_tpu_torch.utils.flops import unet_forward_flops
+
     mod = _script("bench_torch_joint_full_sdxl")
-    assert mod.main(["--remat"]) == 2
-    assert "parallel/" in capsys.readouterr().err
+    assert mod.build_parser().parse_args(["--remat"]).remat
+    assert mod.joint_config(batch=batch, remat=True).sd.unet.remat
+    assert not mod.joint_config(batch=batch).sd.unet.remat
+    plain = mod.unet_step_flops(batch, remat=False)
+    assert plain == 3.0 * unet_forward_flops(sdxl_unet_config(), 2 * batch, 64)
+    assert mod.unet_step_flops(batch, remat=True) == pytest.approx(plain * 4 / 3,
+                                                                    rel=1e-15)
 
 
 @pytest.mark.parametrize("name,op,bucket", [

@@ -61,7 +61,8 @@ def test_port_imports_neither_jax_nor_reference_package():
                 "training.checkpoints", "training.loop", "train", "utils.safetensors",
                 "models.diffusion.weights", "models.diffusion.clip_text",
                 "models.diffusion.clip_vision", "models.diffusion.tokenizer",
-                "data.native_loader", "models.nerf.error_map", "models.nerf.tiny"):
+                "data.native_loader", "models.nerf.error_map", "models.nerf.tiny",
+                "parallel", "parallel.sharding", "parallel.fsdp"):
         assert f"stable_nerf_tpu_torch.{mod}" in names.split(), mod
 
 
@@ -87,6 +88,7 @@ def _entry_points():
     from stable_nerf_tpu_torch.models.nerf.error_map import error_map_init
     from stable_nerf_tpu_torch.config import TinyNeRFConfig
     from stable_nerf_tpu_torch.models.nerf.tiny import tiny_nerf_init
+    from stable_nerf_tpu_torch.parallel import make_mesh
     import bench_torch
     import chip_smoke
 
@@ -119,6 +121,13 @@ def _entry_points():
         "run_sd_script": lambda: chip_smoke.load_script("run_torch_sd").main(["--tiny"]),
         "validate_script": lambda: chip_smoke.load_script(
             "validate_torch_sdxl_checkpoint").main(["--checkpoint", "no-such-directory"]),
+        "make_mesh": lambda: make_mesh(),
+        "train_data_parallel": lambda: train(JointConfig(), None, data_parallel=True),
+        "cli_data_parallel": lambda: cli.main(["--tiny", "--dataset", "synthetic",
+                                               "--data-parallel", "--fsdp"]),
+        "cli_coordinator": lambda: cli.main(["--tiny", "--coordinator", "localhost:1",
+                                             "--num-processes", "2", "--process-id", "0",
+                                             "--workdir", os.path.join(REPO, "no-such-dir")]),
     }
 
 
@@ -130,7 +139,9 @@ def _entry_points():
                                   "vae_load_npz", "error_map_init", "tiny_nerf_init",
                                   "bench_nerf_render", "bench_sd_denoise",
                                   "bench_joint_full_sdxl_script", "profile_sd_denoise_script",
-                                  "run_sd_script", "validate_script"])
+                                  "run_sd_script", "validate_script", "make_mesh",
+                                  "train_data_parallel", "cli_data_parallel",
+                                  "cli_coordinator"])
 def test_entry_points_default_to_cuda_and_refuse_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")

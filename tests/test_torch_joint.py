@@ -316,15 +316,16 @@ def test_losses(rng):
 
 
 @pytest.mark.parametrize("field,cls", [
-    ("mixed_precision", "train"), ("remat", "unet"), ("bg_radius", "nerf")])
+    ("mixed_precision", "train"), ("vae_scaling_factor", "sd"), ("bg_radius", "nerf")])
 def test_config_conversion_refuses_unported_settings(field, cls):
     """A reference setting the port does not have converts only at its
-    default, so a configuration is never silently changed."""
+    default, so a configuration is never silently changed.  (The U-Net's
+    ``remat`` converts since the port has it: tests/test_torch_parallel.py.)"""
     jcfg = _tiny_joint_config()
     assert convert.config_from_jax(jcfg).train.max_steps_train == 32
-    sub = {"train": jcfg.train, "unet": jcfg.sd.unet, "nerf": jcfg.nerf}[cls]
+    sub = {"train": jcfg.train, "sd": jcfg.sd.sd, "nerf": jcfg.nerf}[cls]
     changed = dataclasses.replace(sub, **{field: {"mixed_precision": "float32",
-                                                  "remat": True,
+                                                  "vae_scaling_factor": 0.5,
                                                   "bg_radius": 2.0}[field]})
     with pytest.raises(TypeError, match=f"{field} = .* is not ported"):
         convert.config_from_jax(changed)

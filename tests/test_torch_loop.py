@@ -326,9 +326,7 @@ def test_cli_builds_the_configuration_train_py_builds():
         assert got.sd.sd == convert.config_from_jax(want.sd.sd)
 
 
-@pytest.mark.parametrize("flag", [["--data-parallel"], ["--tensor-parallel", "2"], ["--fsdp"],
-                                  ["--sp", "2"], ["--distributed"],
-                                  ["--coordinator", "h:1"], ["--remat"]])
+@pytest.mark.parametrize("flag", [["--tensor-parallel", "2"], ["--sp", "2"]])
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit) as e:
         tcli.main(ARGS + flag + ["--device", "cpu"])
@@ -337,13 +335,12 @@ def test_cli_refuses_unported_flags(flag):
 
 
 def test_loop_refuses_parallel_and_pretrained_weights():
-    """Multi-device training is not ported; pretrained weights are, and a
-    tree that does not fit the init is refused before any step."""
+    """Tensor parallelism is not ported (data parallelism and FSDP are,
+    tests/test_torch_parallel.py); pretrained weights are, and a tree that
+    does not fit the init is refused before any step."""
     _, tcfg = _cfgs()
-    for kw in ({"data_parallel": True}, {"tensor_parallel": 2}, {"fsdp": True},
-               {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="parallel/"):
-            tloop.train(tcfg, None, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="model-axis parallelism"):
+        tloop.train(tcfg, None, device="cpu", tensor_parallel=2)
     with pytest.raises(KeyError, match="vae"):
         tloop.build_initial_params(tcfg, 0, 1, pretrained_sd={"vae": {}}, device="cpu")
 
