@@ -114,7 +114,25 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                where the probe does;
   cli_dp       python -m stable_nerf_tpu_torch.train --tiny --data-parallel
                --fsdp --remat for one epoch (a world of one on NCCL), then
-               --inference.
+               --inference;
+  tp_serve, sp_serve  two ranks on the card over gloo (``--rank-worker DIR
+               --rank-job serve``) serve the full-width request (2 scenes,
+               512 eval march steps, 64 samples a ray, 50 DDIM steps, f32
+               decode) with the U-Net tensor-parallel (tp 2), then
+               sequence-parallel (sp 2, ring attention): ms a request,
+               all-reduces or ring hops and their bytes, each rank's peak;
+               the ranks' images bit-equal, the same weights and draws as
+               one process's request, held to it by PSNR; a tiny float32
+               request (5 DDIM steps, guidance 3) held to one process's key
+               by key.  sp_serve also records a probe of gloo's
+               point-to-point path on CUDA tensors (the ring stages its
+               blocks through the host on gloo);
+  tp_train     two tensor-parallel ranks: the tiny float32 update against
+               one process's on the global batch of 2, then 2 full-width
+               steps a rank (ms, K1 launches, peak and resting bytes against
+               a dp_train rank's);
+  fsdp_tp_train  four ranks, data 2 x model 2, fully sharded over data: the
+               tiny float32 update against one process's.
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last the device
 line ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
 
@@ -755,18 +773,13 @@ def parity_small(dev):
     return row
 
 
-def serve_parity(dev):
-    """The tiny inference step (5 DDIM steps, float32, a sparse occupancy
-    grid so compaction sees a real mask) on ``dev`` against the CPU, same
-    params and draws.  Tolerance: every result key within 1e-3 of its
-    largest reference entry (SSIM, a mean over [-1, 1] that is near 0
-    here, within 1e-3 absolutely); float32 sums in other orders, through
-    five U-Net passes and the VAE decode."""
+def tiny_serve_inputs(dev):
+    """The tiny serving check's weights, grid (sparse, so compaction sees
+    a real mask), batch of SERVE_BATCH and draws, made on the CPU (the same
+    numbers in every process) and moved to ``dev``."""
     import torch
 
-    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
     from stable_nerf_tpu_torch.models.nerf.grid import OccupancyGridState
-    from stable_nerf_tpu_torch.training.inference import make_inference_step
     from stable_nerf_tpu_torch.utils.tree import tree_map
 
     cfg = tiny_joint_config()
@@ -780,20 +793,44 @@ def serve_parity(dev):
     enc = cfg.latent_hw
     draws = {"vae_eps": torch.randn((SERVE_BATCH, 4, enc, enc), generator=g),
              "init_latents": torch.randn((SERVE_BATCH, 4, enc, enc), generator=g)}
+    return (tree_map(lambda x: x.to(dev), params),
+            OccupancyGridState(*(t.to(dev) for t in grid)),
+            {k: v.to(dev) for k, v in batch.items()},
+            {k: v.to(dev) for k, v in draws.items()})
+
+
+def serve_errors(got, want):
+    """Each result key's largest difference over the key's largest
+    reference entry (SSIM, a mean over [-1, 1] near 0 here, absolutely)."""
+    return {k: float((got[k].float().cpu() - ref.float().cpu()).abs().max()
+                     / (1.0 if k == "ssim" else ref.float().abs().max().clamp_min(1e-30)))
+            for k, ref in want.items()}
+
+
+def serve_parity(dev):
+    """The tiny inference step (5 DDIM steps, float32, a sparse occupancy
+    grid so compaction sees a real mask) on ``dev`` against the CPU, same
+    params and draws.  Tolerance: every result key within 1e-3 of its
+    largest reference entry (SSIM, a mean over [-1, 1] that is near 0
+    here, within 1e-3 absolutely); float32 sums in other orders, through
+    five U-Net passes and the VAE decode."""
+    import torch
+
+    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+    from stable_nerf_tpu_torch.training.inference import make_inference_step
+
+    cfg = tiny_joint_config()
+    cpu = torch.device("cpu")
     results = {}
     for d in (cpu, dev):
+        params, grid, batch, draws = tiny_serve_inputs(d)
         step = make_inference_step(cfg, DDIMScheduler.create(cfg.sd.scheduler, device=d),
                                    5, compute_dtype=torch.float32, guidance_scale=3.0,
                                    capture_attn_maps=True, device=d)
-        out = step(tree_map(lambda x: x.to(d), params),
-                   OccupancyGridState(*(t.to(d) for t in grid)),
-                   {k: v.to(d) for k, v in batch.items()},
-                   draws={k: v.to(d) for k, v in draws.items()})
+        out = step(params, grid, batch, draws=draws)
         out["ip_attn_maps"] = torch.cat([m.reshape(-1) for m in out["ip_attn_maps"]])
         results[d.type] = {k: v.float().cpu() for k, v in out.items()}
-    errs = {k: float((results[dev.type][k] - ref).abs().max()
-                     / (1.0 if k == "ssim" else ref.abs().max().clamp_min(1e-30)))
-            for k, ref in results["cpu"].items()}
+    errs = serve_errors(results[dev.type], results["cpu"])
     row = {"phase": "serve_parity", "ddim_steps": 5, "guidance_scale": 3.0,
            "rel_err_by_key": errs, "tolerance": 1e-3}
     row["ok"] = bool(all(e <= 1e-3 for e in errs.values()))
@@ -884,6 +921,37 @@ def joint_budget(dev, cfg, setup, opt, steps):
     return row
 
 
+class StageClock:
+    """A ``stage_hook`` that synchronizes and reads the host clock at each
+    stage's end; :meth:`request` times one request by stage."""
+
+    def __init__(self, dev):
+        self.dev, self.marks = dev, []
+
+    def __call__(self, name):
+        import torch
+
+        torch.cuda.synchronize(self.dev)
+        self.marks.append((name, time.perf_counter()))
+
+    def request(self, step, *args, **kw):
+        """(result, host ms, ms by stage) of one call of ``step``, built
+        with this clock as its stage hook."""
+        import torch
+
+        self.marks.clear()
+        torch.cuda.synchronize(self.dev)
+        t0 = time.perf_counter()
+        out = step(*args, **kw)
+        torch.cuda.synchronize(self.dev)
+        total = (time.perf_counter() - t0) * 1e3
+        stages, prev = {}, t0
+        for name, t in self.marks:
+            stages[name] = (t - prev) * 1e3
+            prev = t
+        return out, total, stages
+
+
 def serve(dev, cfg, setup):
     """Full-width inference requests, batches of SERVE_BATCH scenes: the
     eval render at 512 march steps and 64 samples a ray, 50 DDIM steps,
@@ -896,24 +964,10 @@ def serve(dev, cfg, setup):
 
     params, _, grid, sched, _ = setup
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
-    marks = []
-
-    def hook(name):
-        torch.cuda.synchronize()
-        marks.append((name, time.perf_counter()))
+    hook = StageClock(dev)
 
     def request(step, batch):
-        marks.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = step(params, grid, batch, generator=g)
-        torch.cuda.synchronize()
-        total = (time.perf_counter() - t0) * 1e3
-        stages, prev = {}, t0
-        for name, t in marks:
-            stages[name] = (t - prev) * 1e3
-            prev = t
-        return out, total, stages
+        return hook.request(step, params, grid, batch, generator=g)
 
     n_steps = cfg.train.num_inference_steps
     step = make_inference_step(cfg, sched, n_steps, device=dev, stage_hook=hook)
@@ -2191,6 +2245,377 @@ def cli_dp(here):
     return row
 
 
+# -- model-axis parallelism: tensor- and sequence-parallel serving, TP training --
+
+MODEL_TIMEOUT_S = 480    # a launch of the model-axis phases, all its parts
+PROBE_TIMEOUT_S = 90     # the ring transport probe's launch
+FSDP_TP_RANKS = 4        # data 2 x model 2, at the tiny size
+# the full-width sharded request against the single-process one, both in
+# bf16 through 50 DDIM steps: the sums of the sharded heads and the ring's
+# online softmax round in other places, so the images are held on average
+# (PSNR of one against the other), the tiny float32 request entry by entry
+SERVE_PSNR_DB = 30.0
+TINY_SERVE_TOL = 1e-3
+
+
+def param_checksum(tree) -> float:
+    """A float64 sum of every leaf: equal weights give equal sums (each
+    rank builds the flagship weights from the seed on its own)."""
+    from stable_nerf_tpu_torch.utils.tree import tree_leaves
+
+    return float(sum(x.double().sum() for x in tree_leaves(tree)
+                     if x.is_floating_point()))
+
+
+def serve_inputs(cfg, dev):
+    """The full-width request's batch of SERVE_BATCH scenes and its draws,
+    from a seed, on ``dev``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    batch = make_batch(cfg, dev, g, SERVE_BATCH)
+    enc = cfg.latent_hw
+    draws = {"vae_eps": torch.randn((SERVE_BATCH, 4, enc, enc), generator=g, device=dev),
+             "init_latents": torch.randn((SERVE_BATCH, 4, enc, enc), generator=g,
+                                         device=dev)}
+    return batch, draws
+
+
+def rank_mesh(dev, argv, sp=1, tp=1):
+    """This rank's (data x seq x model) mesh over gloo, the world joined at
+    the first call and adopted after."""
+    from stable_nerf_tpu_torch.parallel import make_mesh_3d
+
+    flag = lambda name: argv[argv.index(name) + 1]                 # noqa: E731
+    return make_mesh_3d(dev, sp=sp, tp=tp, backend="gloo",
+                        init_method=f"tcp://{flag('--coordinator')}",
+                        rank=int(flag("--process-id")),
+                        world_size=int(flag("--num-processes")))
+
+
+def ring_probe_job(dev, argv, outdir):
+    """gloo's point-to-point path handed CUDA tensors as they are (the ring
+    stages its blocks through the host instead): what it returns."""
+    import torch
+    import torch.distributed as dist
+
+    mesh = rank_mesh(dev, argv)
+    x = torch.arange(8, dtype=torch.float32, device=dev) + 100 * mesh.rank
+    recv = torch.empty_like(x)
+    peer = 1 - mesh.rank
+    ops = [dist.P2POp(dist.isend, x, peer), dist.P2POp(dist.irecv, recv, peer)]
+    try:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        torch.cuda.synchronize()
+        got = "ok" if torch.equal(recv.cpu(), torch.arange(8.0) + 100 * peer) else \
+            f"wrong values {recv.cpu().tolist()}"
+    except RuntimeError as e:                    # the backend refuses them
+        got = str(e)[:300]
+    with open(os.path.join(outdir, f"probe{mesh.rank}.json"), "w") as f:
+        json.dump({"gloo_p2p_cuda": got}, f)
+    return mesh
+
+
+def serve_job(dev, argv, outdir):
+    """tp_serve, then sp_serve: the tiny float32 request (5 DDIM steps,
+    guidance 3) and the full-width one (a 2-step warm-up, then 50 steps)
+    sharded, each rank's results written for the parent to compare."""
+    import torch
+
+    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+    from stable_nerf_tpu_torch.training.inference import (make_inference_step,
+                                                          make_sharded_inference_step)
+
+    cfg = flagship_config()
+    tiny = tiny_joint_config()
+    t_params, t_grid, t_batch, t_draws = tiny_serve_inputs(dev)
+    params, _, grid, sched, _ = make_setup(cfg, dev, SEED)
+    batch, draws = serve_inputs(cfg, dev)
+    rec = {"param_checksum": param_checksum(params)}
+    mesh = None
+    for name, sp, tp in (("tp_serve", 1, 2), ("sp_serve", 2, 1)):
+        mesh = rank_mesh(dev, argv, sp=sp, tp=tp)
+        r = {"mesh": mesh.shape}
+        build = make_sharded_inference_step(
+            tiny, DDIMScheduler.create(tiny.sd.scheduler, device=dev), 5, mesh=mesh, tp=tp,
+            sp=sp, compute_dtype=torch.float32, guidance_scale=3.0)
+        local, step = build(t_params)
+        out = step(local, t_grid, t_batch, draws=t_draws)
+        torch.save({k: v.cpu() for k, v in out.items()},
+                   os.path.join(outdir, f"{name}_tiny_rank{mesh.rank}.pt"))
+        del local, step, out
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        clock = StageClock(dev)
+        build = make_sharded_inference_step(cfg, sched, cfg.train.num_inference_steps,
+                                            mesh=mesh, tp=tp, sp=sp, stage_hook=clock)
+        local, step = build(params)
+        axes = dict(tp_axis=mesh.axes["model"] if tp > 1 else None,
+                    sp_axis=mesh.axes["seq"] if sp > 1 else None)
+        warm = make_inference_step(cfg, sched, 2, device=dev, **axes)
+        warm(local, grid, batch, draws=draws)
+        for k in list(mesh.counts):
+            mesh.counts[k] = 0
+        out, ms, stages = clock.request(step, local, grid, batch, draws=draws)
+        r.update(request_ms=ms, stages_ms=stages, counts=dict(mesh.counts),
+                 max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+                 finite=bool(out["denoised_image"].isfinite().all()))
+        torch.save(out["denoised_image"].cpu(),
+                   os.path.join(outdir, f"{name}_rank{mesh.rank}.pt"))
+        rec[name] = r
+        del local, step, warm, out
+        torch.cuda.empty_cache()
+    with open(os.path.join(outdir, f"serve{mesh.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return mesh
+
+
+def tp_train_job(dev, argv, outdir, fsdp=False):
+    """tp_train (world 2: model 2) or fsdp_tp_train (world 4: data 2 x
+    model 2, fully sharded over data): the tiny float32 step on this data
+    rank's rows of the global batch of 2; for tp_train then RANK_STEPS
+    full-width steps: ms, scatter launches, peak and resting bytes."""
+    import torch
+
+    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+    from stable_nerf_tpu_torch.ops.hopper.scatter import hash_scatter_add_per_level
+    from stable_nerf_tpu_torch.parallel import (make_parallel_train_step,
+                                                place_joint_for_fsdp, place_joint_for_tp,
+                                                replicate)
+    from stable_nerf_tpu_torch.training.joint import (joint_trainable_mask, make_optimizer,
+                                                      make_train_step)
+    from stable_nerf_tpu_torch.utils.tree import partition, tree_leaves, tree_map
+
+    mesh = rank_mesh(dev, argv, tp=2)
+    data, model = mesh.axes["data"], mesh.axes["model"]
+    name = "fsdp_tp_train" if fsdp else "tp_train"
+    rec = {"mesh": mesh.shape}
+
+    def place(params, mask, min_size):
+        if fsdp:
+            params, layout = place_joint_for_fsdp(params, data, tp_axis=model,
+                                                  min_size=min_size)
+            return params, layout, layout.tp
+        params, tp = place_joint_for_tp(params, model)
+        return params, None, tp
+
+    cfg, params, grid, batch, draws = tiny_rank_inputs(dev)
+    mask = joint_trainable_mask(params)
+    params, layout, tp = place(params, mask, 1 << 8)
+    opt = make_optimizer(cfg.train, params, mask)
+    step = make_parallel_train_step(make_train_step(
+        cfg, DDIMScheduler.create(cfg.sd.scheduler, device=dev), opt,
+        compute_dtype=torch.float32, device=dev, mesh=data, fsdp=layout, tp_axis=model), data)
+    hash_scatter_add_per_level.launches = 0
+    m = step(params, grid, rows_of(batch, data.rank, data.world),
+             draws=rows_of(draws, data.rank, data.world))
+    rec["tiny_scatter_launches"] = hash_scatter_add_per_level.launches
+    rec["tiny_loss"] = {k: float(v) for k, v in m.items()}
+    whole = layout.gather(params, with_grad=False) if layout else params
+    whole = tp.gather(whole)
+    if mesh.rank == 0:
+        torch.save(tree_map(lambda t: None if t is None else t.detach().cpu(),
+                            partition(whole, mask)[0]),
+                   os.path.join(outdir, f"tiny_{name}.pt"))
+    del params, opt, step, whole, layout, tp
+    if not fsdp:
+        full = flagship_config()
+        params, mask, grid, sched, batch = make_setup(full, dev, SEED)
+        replicate((params, list(grid)), mesh)
+        params, _, tp = place(params, mask, None)
+        torch.cuda.empty_cache()
+        opt = make_optimizer(full.train, params, mask)
+        step = make_parallel_train_step(make_train_step(
+            full, sched, opt, device=dev, mesh=data, tp_axis=model), data)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in list(mesh.counts):
+            mesh.counts[k] = 0
+        g = torch.Generator(device=dev).manual_seed(SEED + 4)
+        losses, times, launches = timed_steps(step, params, grid, batch, RANK_STEPS, dev,
+                                              generator=g)
+        torch.cuda.synchronize()
+        rec.update(step_ms=times, losses=losses, scatter_launches=launches,
+                   counts_per_step={k: v / RANK_STEPS for k, v in mesh.counts.items()},
+                   max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+                   resting_bytes=torch.cuda.memory_allocated(dev),
+                   param_bytes=sum(x.numel() * x.element_size()
+                                   for x in tree_leaves(params)),
+                   sharded_leaves=len(tp.leaves))
+        del params, opt, step, grid, batch
+        torch.cuda.empty_cache()
+    with open(os.path.join(outdir, f"{name}{mesh.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return mesh
+
+
+RANK_JOBS = {"ring_probe": ring_probe_job, "serve": serve_job, "tp_train": tp_train_job,
+             "fsdp_tp_train": lambda dev, argv, outdir: tp_train_job(dev, argv, outdir,
+                                                                     fsdp=True)}
+
+
+def model_job(outdir, argv, job):
+    """One rank of a model-axis launch (``--rank-worker DIR --rank-job
+    JOB``), on the one card over gloo."""
+    import torch
+
+    from stable_nerf_tpu_torch.parallel import close_mesh
+    from stable_nerf_tpu_torch.utils.device import disable_tf32
+
+    disable_tf32()
+    try:
+        RANK_JOBS[job](torch.device(RANK_DEVICE), argv, outdir)
+    finally:
+        close_mesh()
+    return 0
+
+
+def launch_job(here, outdir, job, n, timeout, probe=False):
+    """``n`` ranks of ``job``; (exit code, seconds).  A ``probe`` that
+    outlives ``timeout`` is recorded as "timeout" (its ranks are stopped);
+    any other job's timeout raises."""
+    from stable_nerf_tpu_torch.train import launch_local
+
+    t = time.perf_counter()
+    command = [sys.executable, os.path.join(here, "chip_smoke.py"), "--rank-worker", outdir,
+               "--rank-job", job]
+    try:
+        rc = launch_local([], n, command=command, timeout=timeout)
+    except TimeoutError:
+        if not probe:
+            raise
+        rc = "timeout"
+    return rc, time.perf_counter() - t
+
+
+def read_json(path):
+    return json.load(open(path)) if os.path.exists(path) else {}
+
+
+def model_axis(here, dev, cfg, served, dp_row):
+    """tp_serve, sp_serve, tp_train and fsdp_tp_train: ranks of this script
+    on the one card over gloo (NCCL refuses two ranks on one device), each
+    checked against one process's result on the same weights and draws."""
+    import shutil
+
+    import torch
+
+    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+    from stable_nerf_tpu_torch.training.inference import make_inference_step
+    from stable_nerf_tpu_torch.training.joint import joint_trainable_mask
+    from stable_nerf_tpu_torch.utils.tree import partition
+
+    outdir = os.path.join(here, "chiprun_out", "model_axis")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    # one process's requests: the tiny float32 one and the full-width one
+    tiny = tiny_joint_config()
+    t_params, t_grid, t_batch, t_draws = tiny_serve_inputs(dev)
+    tiny_ref = make_inference_step(tiny, DDIMScheduler.create(tiny.sd.scheduler, device=dev),
+                                   5, compute_dtype=torch.float32, guidance_scale=3.0,
+                                   device=dev)(t_params, t_grid, t_batch, draws=t_draws)
+    params, _, grid, sched, _ = make_setup(cfg, dev, SEED)
+    checksum = param_checksum(params)
+    batch, draws = serve_inputs(cfg, dev)
+    clock = StageClock(dev)
+    step = make_inference_step(cfg, sched, cfg.train.num_inference_steps, device=dev,
+                               stage_hook=clock)
+    make_inference_step(cfg, sched, 2, device=dev)(params, grid, batch, draws=draws)
+    torch.cuda.reset_peak_memory_stats(dev)
+    single, single_ms, single_stages = clock.request(step, params, grid, batch, draws=draws)
+    single_img = single["denoised_image"].float().cpu()
+    single_peak = torch.cuda.max_memory_allocated(dev)
+    del params, grid, step, single, batch, draws
+    torch.cuda.empty_cache()
+    tiny_train_ref = tiny_reference(dev, "fsdp")
+    _, before, _, _, _ = tiny_rank_inputs(torch.device("cpu"))
+    before = partition(before, joint_trainable_mask(before))[0]
+    torch.cuda.empty_cache()
+
+    probe_rc, probe_s = launch_job(here, outdir, "ring_probe", RANKS, PROBE_TIMEOUT_S,
+                                   probe=True)
+    probe = [read_json(os.path.join(outdir, f"probe{r}.json")) for r in range(RANKS)]
+    rows = []
+    rc, wall = launch_job(here, outdir, "serve", RANKS, MODEL_TIMEOUT_S)
+    ranks = [read_json(os.path.join(outdir, f"serve{r}.json")) for r in range(RANKS)]
+    for name in ("tp_serve", "sp_serve"):
+        row = {"phase": name, "ranks": RANKS, "backend": "gloo", "launch_rc": rc,
+               "launch_s": wall, "scenes_per_request": SERVE_BATCH,
+               "ddim_steps": cfg.train.num_inference_steps,
+               "single_process_request_ms": single_ms,
+               "single_process_stages_ms": single_stages,
+               "single_process_max_memory_allocated": single_peak,
+               "serve_steady_request_ms": served["steady_request_ms"]}
+        if name == "sp_serve":
+            row["ring_transport"] = "gloo, staged through host tensors"
+            # a rank that aborts inside gloo writes nothing: its exit code says so
+            row["ring_probe"] = {"launch_rc": probe_rc, "launch_s": probe_s,
+                                 "gloo_p2p_cuda": [p.get("gloo_p2p_cuda",
+                                                         f"no result: exited {probe_rc}")
+                                                   for p in probe]}
+        recs = [r.get(name) for r in ranks]
+        paths = [os.path.join(outdir, f"{name}_rank{r}.pt") for r in range(RANKS)]
+        if rc == 0 and all(recs) and all(map(os.path.exists, paths)):
+            imgs = [torch.load(p).float() for p in paths]
+            tiny_out = [torch.load(os.path.join(outdir, f"{name}_tiny_rank{r}.pt"))
+                        for r in range(RANKS)]
+            tiny_errs = serve_errors(tiny_out[0], tiny_ref)
+            mse = float(((imgs[0] - single_img) ** 2).mean())
+            row.update({
+                "weights_equal": all(r["param_checksum"] == checksum for r in ranks),
+                "ranks_bit_equal": all(torch.equal(i, imgs[0]) for i in imgs[1:]),
+                "vs_single_max_abs": float((imgs[0] - single_img).abs().max()),
+                "vs_single_mean_abs": float((imgs[0] - single_img).abs().mean()),
+                "vs_single_psnr_db": -10 * math.log10(max(mse, 1e-30)),
+                "tolerance": {"psnr_db": SERVE_PSNR_DB, "tiny_f32": TINY_SERVE_TOL},
+                "tiny_rel_err_by_key": tiny_errs,
+                "per_rank": recs})
+            row["ok"] = bool(row["weights_equal"] and row["ranks_bit_equal"]
+                             and row["vs_single_psnr_db"] >= SERVE_PSNR_DB
+                             and all(e <= TINY_SERVE_TOL for e in tiny_errs.values())
+                             and all(r["finite"] for r in recs))
+        else:
+            row["ok"] = False
+        rows.append(row)
+    lr = tiny.train.lr
+    want_loss, want = tiny_train_ref
+    chunks = 2 * cfg.latent_hw ** 2 * cfg.train.max_steps_train // 2 ** 17
+    for name, n in (("tp_train", RANKS), ("fsdp_tp_train", FSDP_TP_RANKS)):
+        rc, wall = launch_job(here, outdir, name, n, MODEL_TIMEOUT_S)
+        recs = [read_json(os.path.join(outdir, f"{name}{r}.json")) for r in range(n)]
+        row = {"phase": name, "ranks": n, "backend": "gloo", "launch_rc": rc,
+               "launch_s": wall}
+        got_path = os.path.join(outdir, f"tiny_{name}.pt")
+        if rc == 0 and all(recs) and os.path.exists(got_path):
+            got = torch.load(got_path, weights_only=False)
+            loss_err = max(abs(recs[0]["tiny_loss"][k] - want_loss[k]) / abs(want_loss[k])
+                           for k in want_loss)
+            upd_err = compare_updates(got, want, before, lr)
+            row.update({"mesh": recs[0]["mesh"], "tiny_loss_rel_err": loss_err,
+                        "tiny_update_rel_err": upd_err,
+                        "tolerance": {"loss": 1e-5, "update_l2": 1e-3},
+                        "ranks_agree": all(r["tiny_loss"] == recs[0]["tiny_loss"]
+                                           for r in recs),
+                        "per_rank": [{k: v for k, v in r.items() if k != "losses"}
+                                     for r in recs]})
+            ok = (loss_err <= 1e-5 and upd_err <= 1e-3 and row["ranks_agree"]
+                  and all(r["tiny_scatter_launches"] > 0 for r in recs))
+            if name == "tp_train":
+                dp = dp_row.get("per_rank") or [{}]
+                row["dp_train_rank"] = {k: dp[0].get(k) for k in (
+                    "resting_bytes", "max_memory_allocated", "param_bytes", "step_ms")}
+                row["losses"] = recs[0]["losses"]
+                ok = ok and all(r["scatter_launches"] == chunks * RANK_STEPS for r in recs) \
+                    and all(math.isfinite(v) for r in recs for l in r["losses"]
+                            for v in l.values())
+            row["ok"] = bool(ok)
+        else:
+            row["ok"] = False
+        rows.append(row)
+    return rows
+
+
 def scatter_bench(dev, cfg, smi) -> int:
     """The scatter kernel's cases alone, on the batch a full run makes
     (same seeds, no weights)."""
@@ -2229,6 +2654,9 @@ def main() -> int:
     ap.add_argument("--rank-worker", metavar="DIR",
                     help="run as one rank of the dp_train/fsdp_train phases (started by "
                          "this script with the three flags below), writing to DIR")
+    ap.add_argument("--rank-job", default="dp_fsdp",
+                    choices=["dp_fsdp"] + sorted(RANK_JOBS),
+                    help="with --rank-worker: which phases' rank to run")
     ap.add_argument("--coordinator")
     ap.add_argument("--num-processes")
     ap.add_argument("--process-id")
@@ -2239,6 +2667,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if args.rank_worker:
+        if args.rank_job != "dp_fsdp":
+            return model_job(args.rank_worker, sys.argv, args.rank_job)
         return rank_worker(args.rank_worker, sys.argv)
     if args.root:
         if not args.scatter_bench:
@@ -2349,6 +2779,12 @@ def main() -> int:
     cli_dp_row = cli_dp(here)
     emit(cli_dp_row)
     phases += [rematted, dp1, dp_row, fsdp_row, cli_dp_row]
+    # model-axis parallelism: TP and SP serving, TP training, FSDP x TP
+    tp_serve_row, sp_serve_row, tp_row, fsdp_tp_row = model_axis(here, dev, cfg, served,
+                                                                  dp_row)
+    for row in (tp_serve_row, sp_serve_row, tp_row, fsdp_tp_row):
+        emit(row)
+    phases += [tp_serve_row, sp_serve_row, tp_row, fsdp_tp_row]
     per_rank = lambda row: [r.get("scatter_launches") for r in row.get("per_rank", [])]  # noqa: E731
 
     a, ga = cases[0], gathers[0]
@@ -2370,7 +2806,11 @@ def main() -> int:
                              "dp_train_per_rank": per_rank(dp_row),
                              "fsdp_train_per_rank": per_rank(fsdp_row)
                              or fsdp_row.get("scatter_launches"),
-                             "cli_dp": cli_dp_row["runs"]["train"].get("scatter_launches")},
+                             "cli_dp": cli_dp_row["runs"]["train"].get("scatter_launches"),
+                             "tp_train_per_rank": per_rank(tp_row),
+                             "fsdp_tp_train_per_rank": [
+                                 r.get("tiny_scatter_launches")
+                                 for r in fsdp_tp_row.get("per_rank", [])]},
         "max_abs_err": a["kernel_vs_plain_max_abs"],
         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"], "library_ms": a["library_ms"],

@@ -147,12 +147,15 @@ def embed_conditions(params: Dict, image_embeds, cfg: SDNetworkConfig = SDNetwor
 def sd_forward(params: Dict, noisy_latents, timesteps, image_embeds,
                cfg: SDNetworkConfig = SDNetworkConfig(), *,
                compute_dtype=torch.float32, capture_ip_attn_maps: bool = False,
-               pair_tokens=None):
+               pair_tokens=None, tp_axis=None, sp_axis=None):
     """Noise prediction conditioned only on the ip tokens (reference
     SDNetwork.forward, network.py:191-212).
 
     capture_ip_attn_maps: also return the ip-stream attention maps; the
-      return becomes ``(noise_pred, [maps...])``."""
+      return becomes ``(noise_pred, [maps...])``.
+    tp_axis / sp_axis: the mesh axes ``unet_apply`` runs tensor- and
+      sequence-parallel over (the conditioning path stays replicated; only
+      the U-Net shards)."""
     ip_tokens = embed_conditions(params, image_embeds, cfg, pair_tokens=pair_tokens)
     B = noisy_latents.shape[0]
     te = params["add_text_embeds"]
@@ -161,7 +164,7 @@ def sd_forward(params: Dict, noisy_latents, timesteps, image_embeds,
         added_text_embeds=te.expand(B, te.shape[-1]),
         added_time_ids=params["add_time_ids"].expand(B, 6),
         cfg=cfg.unet, compute_dtype=compute_dtype,
-        capture_ip_attn_maps=capture_ip_attn_maps)
+        capture_ip_attn_maps=capture_ip_attn_maps, tp_axis=tp_axis, sp_axis=sp_axis)
     if capture_ip_attn_maps:
         eps, aux = out
         return eps, aux["ip_attn_maps"]

@@ -1,12 +1,16 @@
 """SDXL UNet2DConditionModel with native two-stream IP-Adapter
-cross-attention (counterpart of stable_nerf_tpu/models/diffusion/unet.py,
-without the tensor- and sequence-parallel options).
+cross-attention (counterpart of stable_nerf_tpu/models/diffusion/unet.py).
 
 A cross-attention whose params carry ``to_k_ip``/``to_v_ip`` splits its
 conditioning sequence by position: the last ``ip_num_tokens`` tokens feed
 the ip stream, the rest the "text" stream (attention_processor.py:349-397).
 The joint step passes 2·num_tokens tokens (target view, then reference
 view), so the text stream sees the target view's tokens — reproduced as is.
+
+``tp_axis`` and ``sp_axis`` (axes of a ``parallel.sharding.Mesh``) run the
+transformers tensor- and sequence-parallel: heads and the GEGLU width
+split over the model axis (``parallel.tp``), latent tokens over the seq
+axis with ring self-attention (``nn.ring_sdpa``).
 """
 
 from __future__ import annotations
@@ -19,8 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .nn import (conv2d, group_norm, layer_norm, linear, merge_heads, sdpa, silu,
-                 split_heads, timestep_embedding, uniform)
+from ...parallel.tp import copy_to_model, gather_dim, reduce_from_model
+from .nn import (conv2d, group_norm, layer_norm, linear, merge_heads, ring_sdpa, sdpa,
+                 silu, split_heads, timestep_embedding, uniform)
 
 
 @dataclass(frozen=True)
@@ -202,60 +207,117 @@ def _resnet(p, x, temb, groups):
     return x + h
 
 
+def _reduce_proj(p, x, tp_axis):
+    """The output projection after a column-sharded block: the local
+    product, summed over the model axis, the bias added once after the sum
+    (megatron's row-parallel linear); ``linear`` without ``tp_axis``."""
+    out = x @ p["kernel"].to(x.dtype)
+    if tp_axis is not None:
+        out = reduce_from_model(out, tp_axis)
+    if "bias" in p:
+        out = out + p["bias"].to(x.dtype)
+    return out
+
+
 def _attention(p, x, context, head_dim, ip_tokens: int, ip_scale: float,
-               attn_maps=None):
+               attn_maps=None, tp_axis=None, sp_axis=None):
     """Self-attention when ``context`` is None; else cross-attention, split
     into text and ip streams when the layer has ip weights.  When
     ``attn_maps`` is a list, the ip stream's float32 attention
-    probabilities softmax(s·q·k_ipᵀ) [B, H, S, ip_tokens] are appended."""
+    probabilities softmax(s·q·k_ipᵀ) [B, H, S, ip_tokens] are appended.
+
+    The head count comes from the (possibly model-sharded) ``to_q`` width:
+    under ``tp_axis`` each rank runs its head group and ``to_out`` sums the
+    parts.  Under ``sp_axis`` ``x`` is this rank's token block:
+    self-attention runs ``ring_sdpa``; cross-attention needs no collective
+    (its k/v come from the replicated ``context``)."""
     n_heads = p["to_q"]["kernel"].shape[1] // head_dim
+    if tp_axis is not None:
+        x = copy_to_model(x, tp_axis)
+        context = None if context is None else copy_to_model(context, tp_axis)
     q = split_heads(linear(p["to_q"], x), n_heads)
 
-    def attend(k_p, v_p, ctx):
-        return merge_heads(sdpa(q, split_heads(linear(k_p, ctx), n_heads),
-                                split_heads(linear(v_p, ctx), n_heads)))
+    def kv(k_p, v_p, ctx):
+        return (split_heads(linear(k_p, ctx), n_heads),
+                split_heads(linear(v_p, ctx), n_heads))
 
     if context is None:
-        out = attend(p["to_k"], p["to_v"], x)
+        k, v = kv(p["to_k"], p["to_v"], x)
+        out = merge_heads(ring_sdpa(q, k, v, sp_axis) if sp_axis is not None
+                          else sdpa(q, k, v))
     elif "to_k_ip" in p and ip_tokens > 0:
         end = context.shape[1] - ip_tokens
-        out = attend(p["to_k"], p["to_v"], context[:, :end])
-        out = out + ip_scale * attend(p["to_k_ip"], p["to_v_ip"], context[:, end:])
+        out = merge_heads(sdpa(q, *kv(p["to_k"], p["to_v"], context[:, :end])))
+        k_ip, v_ip = kv(p["to_k_ip"], p["to_v_ip"], context[:, end:])
+        out = out + ip_scale * merge_heads(sdpa(q, k_ip, v_ip))
         if attn_maps is not None:
-            k_ip = split_heads(linear(p["to_k_ip"], context[:, end:]), n_heads)
             logits = (q * q.shape[-1] ** -0.5).float() @ k_ip.float().transpose(-1, -2)
-            attn_maps.append(torch.softmax(logits, dim=-1))
+            probs = torch.softmax(logits, dim=-1)
+            if tp_axis is not None:         # the whole head axis
+                probs = gather_dim(probs, tp_axis, 1)
+            if sp_axis is not None:         # the whole query axis
+                probs = gather_dim(probs, sp_axis, 2)
+            attn_maps.append(probs)
     else:
-        out = attend(p["to_k"], p["to_v"], context)
-    return linear(p["to_out"], out)
+        out = merge_heads(sdpa(q, *kv(p["to_k"], p["to_v"], context)))
+    return _reduce_proj(p["to_out"], out, tp_axis)
 
 
-def _transformer(p, x, context, cfg: UNetConfig, groups, attn_maps=None):
+def _transformer(p, x, context, cfg: UNetConfig, groups, attn_maps=None, tp_axis=None,
+                 sp_axis=None):
+    """Spatial transformer stack.  Under ``sp_axis`` its interior keeps only
+    this rank's block of the h·w tokens (proj_in, the norms, GEGLU and the
+    projections are per token; self-attention rotates k/v round the ring)
+    and one gather after ``proj_out`` brings the whole token axis back."""
     n, c, h, w = x.shape
     y = group_norm(p["norm"], x, groups, eps=1e-6).reshape(n, c, h * w).transpose(1, 2)
+    if sp_axis is not None:
+        seq, sp = h * w, sp_axis.world
+        if seq % sp:
+            raise ValueError(f"sequence length {seq} ({h}x{w} latent tokens) not "
+                             f"divisible by sequence-parallel axis size {sp}")
+        y = y[:, sp_axis.rank * (seq // sp):(sp_axis.rank + 1) * (seq // sp)]
     y = linear(p["proj_in"], y)
     for blk in p["blocks"]:
         y = y + _attention(blk["attn1"], layer_norm(blk["norm1"], y), None,
-                           cfg.head_dim, 0, 0.0)
+                           cfg.head_dim, 0, 0.0, tp_axis=tp_axis, sp_axis=sp_axis)
         y = y + _attention(blk["attn2"], layer_norm(blk["norm2"], y), context,
-                           cfg.head_dim, cfg.ip_num_tokens, cfg.ip_scale, attn_maps)
-        z = linear(blk["ff_geglu"], layer_norm(blk["norm3"], y))
-        val, gate = z.chunk(2, dim=-1)          # diffusers GEGLU order
-        y = y + linear(blk["ff_out"], val * F.gelu(gate))   # exact erf GELU
+                           cfg.head_dim, cfg.ip_num_tokens, cfg.ip_scale, attn_maps,
+                           tp_axis=tp_axis, sp_axis=sp_axis)
+        z = layer_norm(blk["norm3"], y)
+        if tp_axis is not None:
+            z = copy_to_model(z, tp_axis)
+        # diffusers GEGLU order; under tp_axis the permuted local columns
+        val, gate = linear(blk["ff_geglu"], z).chunk(2, dim=-1)
+        y = y + _reduce_proj(blk["ff_out"], val * F.gelu(gate), tp_axis)  # exact erf GELU
     y = linear(p["proj_out"], y)
+    if sp_axis is not None:
+        y = gather_dim(y, sp_axis, 1)
     return x + y.transpose(1, 2).reshape(n, c, h, w)
 
 
 def unet_apply(params: Dict, sample: torch.Tensor, timesteps, encoder_hidden_states,
                *, added_text_embeds, added_time_ids, cfg: UNetConfig = UNetConfig(),
-               compute_dtype=torch.float32, capture_ip_attn_maps: bool = False):
+               compute_dtype=torch.float32, capture_ip_attn_maps: bool = False,
+               tp_axis=None, sp_axis=None):
     """Predict noise [B, 4, h, w] (float32) from noisy latents, timesteps
     (scalar or [B]), conditioning tokens [B, S, cross_attention_dim], the
     SDXL pooled text embeds [B, pooled] and time ids [B, 6].
 
     capture_ip_attn_maps: return ``(eps, {"ip_attn_maps": [...]})`` with
       every ip-stream cross-attention probability map [B, H, S, ip_tokens]
-      in float32, outermost layer first."""
+      in float32, outermost layer first.
+    tp_axis: the model axis of a ``parallel.sharding.Mesh`` for megatron
+      tensor parallelism: the params are this rank's slices
+      (``parallel.tp.shard_unet_for_tp``, GEGLU permuted), the activations
+      replicated, every rank of the axis calls this with the same inputs.
+    sp_axis: the seq axis for sequence parallelism: params and inputs
+      replicated over it, every transformer interior keeps h·w/n tokens a
+      rank (ring self-attention, one gather a transformer).  Every token
+      count the U-Net visits must divide by the axis size (ValueError
+      otherwise).  Composes with ``tp_axis``; a serving lever, as in the JAX
+      package (the replicated leaves' gradients would be each rank's
+      tokens' part)."""
     gr = cfg.norm_groups
     B = sample.shape[0]
     x = sample.to(compute_dtype)
@@ -284,9 +346,12 @@ def unet_apply(params: Dict, sample: torch.Tensor, timesteps, encoder_hidden_sta
         return _resnet(p, x, temb, gr)
 
     def transformer(p, x):
+        # a recomputed block issues its collectives again: every rank
+        # recomputes the same blocks in the same order, its backward's
         if remat:
-            return checkpoint(_transformer, p, x, context, cfg, gr, use_reentrant=False)
-        return _transformer(p, x, context, cfg, gr, attn_maps)
+            return checkpoint(_transformer, p, x, context, cfg, gr, None, tp_axis, sp_axis,
+                              use_reentrant=False)
+        return _transformer(p, x, context, cfg, gr, attn_maps, tp_axis, sp_axis)
 
     x = conv2d(params["conv_in"], x)
     skips = [x]

@@ -29,6 +29,12 @@ an SD leaf of at least ``min_size`` elements with a dimension divisible by
 the world size, split along the largest such dimension.  The NeRF stays
 replicated: its hash-table gradient scatter (the CUDA kernel of
 ``ops/hopper/scatter.py``) runs against a device-local table.
+
+Composed with tensor parallelism (a data × model mesh, ``tp_axis``) the
+tree is first cut over the model axis (``tp.place_joint_for_tp``) and the
+rank's tensor-parallel slices sharded over the data axis: TP's dimension
+of a U-Net leaf survives, and FSDP claims another one, chosen on the whole
+leaf's shape as the JAX package chooses it.
 """
 
 from __future__ import annotations
@@ -39,16 +45,19 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from ..utils.tree import tree_map_with_path
+from ..utils.tree import tree_leaves_with_path, tree_map_with_path
 from .sharding import BUCKET_BYTES, Mesh
+from .tp import TensorParallel, place_joint_for_tp, unet_tp_specs
 
 MIN_SIZE = 1 << 15
 
 
-def fsdp_dim(shape: Sequence[int], world: int, min_size: int = MIN_SIZE) -> Optional[int]:
+def fsdp_dim(shape: Sequence[int], world: int, min_size: int = MIN_SIZE,
+             taken: Optional[int] = None) -> Optional[int]:
     """The dimension a leaf of ``shape`` shards along over ``world`` ranks:
-    the largest one divisible by ``world`` (the first of equals), for a
-    leaf of at least ``min_size`` elements; None leaves it replicated."""
+    the largest one divisible by ``world`` (the first of equals) but
+    ``taken`` (tensor parallelism's), for a leaf of at least ``min_size``
+    elements; None leaves it replicated."""
     size = 1
     for d in shape:
         size *= int(d)
@@ -56,18 +65,27 @@ def fsdp_dim(shape: Sequence[int], world: int, min_size: int = MIN_SIZE) -> Opti
         return None
     best, best_dim = -1, None
     for i, d in enumerate(shape):
-        if int(d) % world == 0 and int(d) > best:
+        if i != taken and int(d) % world == 0 and int(d) > best:
             best, best_dim = int(d), i
     return best_dim
 
 
-def joint_fsdp_specs(params: Dict, world: int, *, min_size: int = MIN_SIZE) -> Any:
-    """A tree like ``params`` holding each leaf's shard dimension, None
-    where the leaf stays replicated: every NeRF leaf, every small SD leaf."""
+def joint_fsdp_specs(params: Dict, world: int, *, tp_axis=None,
+                     min_size: int = MIN_SIZE) -> Any:
+    """A tree like the whole ``params`` holding each leaf's shard dimension
+    over ``world`` data ranks, None where the leaf stays replicated: every
+    NeRF leaf, every small SD leaf.  With ``tp_axis`` (the model axis TP
+    cuts the U-Net over) the dimension TP shards a U-Net leaf along is not
+    taken (JAX's ``joint_fsdp_specs(..., tp_axis="model")``)."""
+    taken = {}
+    if tp_axis is not None:
+        taken = dict(tree_leaves_with_path(unet_tp_specs(params["sd"]["unet"]),
+                                           "['sd']['unet']"))
+
     def spec(path, x):
         if path.startswith("['nerf']") or not isinstance(x, torch.Tensor) or x.ndim == 0:
             return None
-        return fsdp_dim(x.shape, world, min_size)
+        return fsdp_dim(x.shape, world, min_size, taken.get(path))
 
     return tree_map_with_path(spec, params)
 
@@ -126,9 +144,13 @@ class FSDP:
     collectives that gather it for use and scatter its gradients back.
     Build it from the whole tree, then :meth:`shard` the tree."""
 
-    def __init__(self, params: Dict, mesh: Mesh, *, min_size: int = MIN_SIZE):
+    def __init__(self, params: Dict, mesh: Mesh, *, min_size: int = MIN_SIZE,
+                 specs: Optional[Any] = None):
         self.mesh = mesh
-        specs = joint_fsdp_specs(params, mesh.world, min_size=min_size)
+        # the tensor-parallel cut the tree went through first, if any
+        self.tp: Optional[TensorParallel] = None
+        if specs is None:
+            specs = joint_fsdp_specs(params, mesh.world, min_size=min_size)
         self.leaves: List[_Leaf] = [
             _Leaf(path, dim, tuple(_get(params, path).shape), _get(params, path).dtype)
             for path, dim in _paths(specs) if dim is not None]
@@ -332,10 +354,18 @@ def global_token_pairing(mesh: Mesh):
     return pair
 
 
-def place_joint_for_fsdp(params: Dict, mesh: Mesh, **kw) -> Tuple[Dict, FSDP]:
-    """Shard the joint param tree over ``mesh``: returns this rank's tree
-    (each sharded leaf its flat block) and the :class:`FSDP` that gathers
-    it.  Build the optimizer over the returned tree, so its gradients and
-    moments are blocks too."""
-    layout = FSDP(params, mesh, **kw)
+def place_joint_for_fsdp(params: Dict, mesh: Mesh, *, tp_axis: Optional[Mesh] = None,
+                         min_size: int = MIN_SIZE) -> Tuple[Dict, FSDP]:
+    """Shard the whole joint param tree over ``mesh`` (the data axis):
+    returns this rank's tree (each sharded leaf its flat block) and the
+    :class:`FSDP` that gathers it.  Build the optimizer over the returned
+    tree, so its gradients and moments are blocks too.  With ``tp_axis``
+    the tree is cut for tensor parallelism first; the returned layout's
+    ``tp`` gathers that cut back."""
+    specs = joint_fsdp_specs(params, mesh.world, tp_axis=tp_axis, min_size=min_size)
+    tp = None
+    if tp_axis is not None:
+        params, tp = place_joint_for_tp(params, tp_axis)
+    layout = FSDP(params, mesh, specs=specs)
+    layout.tp = tp
     return layout.shard(params), layout

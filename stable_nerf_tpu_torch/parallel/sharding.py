@@ -14,10 +14,16 @@ reference's DDP exempts the NeRF; SURVEY.md §2.3).  The parameter trees
 are dicts of tensors, not ``nn.Module``s, so the average is an explicit
 all-reduce over flattened buckets of gradients rather than
 ``DistributedDataParallel``'s module wrapper.
+
+The JAX package's 2-D (data × model) and 3-D (data × seq × model) meshes
+are :func:`make_mesh_2d` and :func:`make_mesh_3d`: the world's ranks laid
+out in the JAX device order, model innermost, each named axis a process
+group of its own (``Mesh.axes``), on the world's backend.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -34,10 +40,16 @@ from ..utils.tree import tree_leaves
 BUCKET_BYTES = 1 << 27
 
 
-@dataclass
+@dataclass(eq=False)
 class Mesh:
-    """A 1-D data-parallel world.  ``counts`` tallies the bytes and calls
-    of the averaging all-reduces, for the measurements that read them."""
+    """A world of processes, or one axis of one.  ``group``, ``rank`` and
+    ``world`` are the process group, this process's index in it and its
+    size; ``ranks`` its members' global ranks in index order.  ``axes``
+    maps each axis name to the 1-D mesh of this process's group along it
+    (a 1-D mesh is its own ``data`` axis), so the data-parallel and
+    fully-sharded code takes ``mesh.axes["data"]`` of any mesh.
+    ``counts`` tallies the bytes and calls of the collectives, shared by a
+    world and its axes, for the measurements that read them."""
 
     group: Any
     rank: int
@@ -46,6 +58,24 @@ class Mesh:
     backend: str
     counts: Dict[str, int] = field(default_factory=lambda: {"all_reduce_bytes": 0,
                                                             "all_reduce_calls": 0})
+    ranks: List[int] = field(default_factory=list)
+    axes: Dict[str, "Mesh"] = field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        if not self.ranks:
+            self.ranks = list(range(self.world))
+        if not self.axes:
+            self.axes = {"data": self}
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name → size, outermost first."""
+        return {name: axis.world for name, axis in self.axes.items()}
+
+
+def count(mesh: Mesh, key: str, n: int) -> None:
+    """Add ``n`` to the mesh's tally ``key``."""
+    mesh.counts[key] = mesh.counts.get(key, 0) + n
 
 
 def _backend_for(dev: torch.device) -> str:
@@ -96,6 +126,63 @@ def close_mesh() -> None:
     """Destroy the default process group, where one is initialized."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def make_mesh_3d(device=None, *, sp: int = 1, tp: int = 1, **kw) -> Mesh:
+    """The (data × seq × model) mesh of this process's world (counterpart
+    of ``stable_nerf_tpu.parallel.sp.make_mesh_3d``), the world adopted or
+    initialized as :func:`make_mesh` does (``kw``: its ``backend``,
+    ``init_method``, ``rank``, ``world_size``).  The JAX device order: model
+    innermost, seq next, so rank ``r`` has model index ``r % tp``, seq index
+    ``(r // tp) % sp`` and data index ``r // (sp·tp)``.  Each axis is a
+    process group on the world's backend (the world's own group where the
+    axis spans it).  Every rank calls this with the same sizes: making a
+    group is a collective.  A world that ``sp·tp`` does not divide is
+    refused before any group is made."""
+    return _mesh_of(device, {"data": None, "seq": sp, "model": tp}, kw)
+
+
+def make_mesh_2d(device=None, *, tp: int = 1, **kw) -> Mesh:
+    """The (data × model) mesh (counterpart of
+    ``stable_nerf_tpu.parallel.tp.make_mesh_2d``): :func:`make_mesh_3d`
+    without a seq axis."""
+    return _mesh_of(device, {"data": None, "model": tp}, kw)
+
+
+def _mesh_of(device, sizes: Dict[str, Optional[int]], kw) -> Mesh:
+    """The world with the axes of ``sizes`` (outermost first; None: the
+    world over the others' product)."""
+    n = dist.get_world_size() if dist.is_initialized() else (kw.get("world_size") or 1)
+    inner = math.prod(v for v in sizes.values() if v is not None)
+    if n % inner:
+        names = "*".join(k for k, v in sizes.items() if v is not None)
+        raise ValueError(f"{n} processes not divisible by {names}={inner}")
+    return _with_axes(make_mesh(device, **kw),
+                      {k: n // inner if v is None else v for k, v in sizes.items()})
+
+
+def _with_axes(world: Mesh, sizes: Dict[str, int]) -> Mesh:
+    """``world`` with one group an axis of ``sizes`` (outermost first; the
+    last axis innermost)."""
+    names = list(sizes)
+    strides, s = {}, 1
+    for name in reversed(names):
+        strides[name] = s
+        s *= sizes[name]
+    world.axes = {}
+    for name in names:
+        size, stride = sizes[name], strides[name]
+        members = [[r + i * stride for i in range(size)] for r in range(world.world)
+                   if (r // stride) % size == 0]
+        mine = next(m for m in members if world.rank in m)
+        if size == world.world:
+            group = world.group
+        else:
+            group, _ = dist.new_subgroups_by_enumeration(members, backend=world.backend)
+        world.axes[name] = Mesh(group, mine.index(world.rank), size, world.device,
+                                world.backend, world.counts, mine)
+        world.axes[name].axes = {name: world.axes[name]}
+    return world
 
 
 def process_shard_indices(n_samples: int, mesh: Mesh) -> np.ndarray:
@@ -155,8 +242,8 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
             flat = torch.cat([t.reshape(-1) for t in bucket])
             dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
             flat.div_(mesh.world)
-            mesh.counts["all_reduce_bytes"] += flat.numel() * flat.element_size()
-            mesh.counts["all_reduce_calls"] += 1
+            count(mesh, "all_reduce_bytes", flat.numel() * flat.element_size())
+            count(mesh, "all_reduce_calls", 1)
             for t, piece in zip(bucket, flat.split([t.numel() for t in bucket])):
                 t.copy_(piece.view_as(t))
 

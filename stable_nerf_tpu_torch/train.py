@@ -14,9 +14,9 @@ Usage:
   torchrun --nproc-per-node N -m stable_nerf_tpu_torch.train --distributed [--fsdp]
   python -m stable_nerf_tpu_torch.train --data-parallel --coordinator HOST:PORT \\
       --num-processes N --process-id I                           # each process
-
-``--tensor-parallel`` > 1 and ``--sp`` > 1 are not ported yet: they exit
-non-zero and name the ROADMAP.md item that will port them.
+  python -m stable_nerf_tpu_torch.train --tensor-parallel 2 ...  # (data x model) mesh
+  python -m stable_nerf_tpu_torch.train --inference --tensor-parallel T --sp S ...
+                                                    # serving sharded over T·S processes
 """
 
 from __future__ import annotations
@@ -27,12 +27,6 @@ import os
 import sys
 import time
 from typing import Optional
-
-NOT_PORTED = {
-    "--tensor-parallel": "parallel serving and model-axis parallelism (tp.py)",
-    "--sp": "parallel serving and model-axis parallelism (sp.py)",
-}
-
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -78,7 +72,10 @@ def build_parser():
                         "(started here unless a launcher or --coordinator started "
                         "this one), gradients averaged before each update")
     p.add_argument("--tensor-parallel", type=int, default=1,
-                   help="model-axis size; only 1 is ported")
+                   help="model-axis size: the U-Net's heads and GEGLU width split over "
+                        "this many processes (training on a (data x model) mesh of the "
+                        "world; with --inference, serving, with --sp); SDXL admits 2, 5, "
+                        "10"),
     p.add_argument("--fsdp", action="store_true",
                    help="fully-shard the SD params + AdamW moments over the data-parallel "
                         "processes (ZeRO-3: gathered for use, gradients reduce-scattered)")
@@ -103,7 +100,9 @@ def build_parser():
                    help="with --inference: save the final DDIM step's ip-stream "
                         "cross-attention maps to renders/ip_attn_maps_<batch>.npz")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel axis size; only 1 is ported")
+                   help="with --inference: sequence-parallel axis size (ring attention "
+                        "over the latent tokens); composes with --tensor-parallel on a "
+                        "(data x seq x model) mesh")
     p.add_argument("--checkpoint-every", type=int, default=50,
                    help="save a resumable checkpoint every N epochs (0 = only at "
                         "the end)")
@@ -148,11 +147,6 @@ def build_parser():
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the port runs (default cuda; raises without a card)")
     return p
-
-
-def _refused_flags(args) -> list:
-    given = {"--tensor-parallel": args.tensor_parallel > 1, "--sp": args.sp > 1}
-    return [flag for flag, on in given.items() if on]
 
 
 def _default_workdir() -> str:
@@ -216,14 +210,17 @@ def launch_local(argv, n: int, command=None, timeout: Optional[float] = None) ->
 
 
 def join_process_group(args):
-    """The data-parallel world of this process under ``--distributed`` or
-    ``--coordinator`` (its rank's card, NCCL on cards, gloo with
-    ``--device cpu``); None when neither is given."""
+    """The world of this process under ``--distributed`` or ``--coordinator``
+    (its rank's card, NCCL on cards, gloo with ``--device cpu``): a
+    (data × seq × model) mesh to serve with ``--inference`` and
+    ``--tensor-parallel``/``--sp``, a (data × model) mesh to train with
+    ``--tensor-parallel``, else a data-parallel one; None when neither flag
+    is given."""
     if not (args.distributed or args.coordinator):
         return None
     import torch
 
-    from .parallel.sharding import make_mesh
+    from .parallel.sharding import make_mesh, make_mesh_2d, make_mesh_3d
 
     if args.coordinator:
         rank, world = args.process_id, args.num_processes
@@ -237,9 +234,15 @@ def join_process_group(args):
 
         resolve_device(device)              # no card: raise, never fall back
         device = f"cuda:{local % torch.cuda.device_count()}"
-    mesh = make_mesh(device, init_method=init, rank=rank, world_size=world)
+    kw = dict(init_method=init, rank=rank, world_size=world)
+    if args.inference:
+        mesh = make_mesh_3d(device, sp=args.sp, tp=args.tensor_parallel, **kw)
+    elif args.tensor_parallel > 1:
+        mesh = make_mesh_2d(device, tp=args.tensor_parallel, **kw)
+    else:
+        mesh = make_mesh(device, **kw)
     print(f"distributed: process {mesh.rank}/{mesh.world} on {mesh.device} over "
-          f"{mesh.backend}")
+          f"{mesh.backend}, mesh {mesh.shape}")
     return mesh
 
 
@@ -364,27 +367,39 @@ def main(argv=None):
     except (AttributeError, ValueError):
         pass
 
-    refused = _refused_flags(args)
-    if refused:
-        sys.exit("not ported yet: " + "; ".join(
-            f"{flag} (ROADMAP.md §1 queue: {NOT_PORTED[flag]})" for flag in refused))
+    if args.sp > 1 and not args.inference:
+        sys.exit("--sp is a serving lever (use with --inference); training "
+                 "scale-out is --data-parallel / --tensor-parallel / --fsdp")
     if args.coordinator and (args.num_processes is None or args.process_id is None):
         sys.exit("--coordinator requires --num-processes and --process-id")
-    parallel = args.data_parallel or args.fsdp
-    if parallel and not (args.distributed or args.coordinator or args.inference):
-        # as the JAX CLI's --data-parallel takes every local chip: one
-        # process a visible card, a world of one on a single card or the CPU
+    # sharded: the U-Net split over processes, which all take part
+    sharded = args.tensor_parallel > 1 or args.sp > 1
+    parallel = args.data_parallel or args.fsdp or args.tensor_parallel > 1
+    n = 1
+    if (sharded or parallel and not args.inference) and not (args.distributed
+                                                             or args.coordinator):
+        # as the JAX CLI takes every local chip: one process a visible
+        # card, a world of one on a single card or the CPU
         import torch
 
-        n = torch.cuda.device_count() if args.device == "cuda" else 1
-        if n > 1:
-            argv = list(argv if argv is not None else sys.argv[1:])
-            if not args.workdir:
-                argv += ["--workdir", _default_workdir()]
-            rc = launch_local(argv, n)
-            if rc:
-                sys.exit(rc)
-            return None
+        from .utils.device import resolve_device
+
+        n = torch.cuda.device_count() if resolve_device(args.device).type == "cuda" else 1
+    if sharded:
+        world = (args.num_processes if args.coordinator
+                 else int(os.environ.get("WORLD_SIZE", 1)) if args.distributed else n)
+        need = args.tensor_parallel * (args.sp if args.inference else 1)
+        if world < need or world % need:
+            sys.exit(f"--tensor-parallel {args.tensor_parallel} --sp {args.sp} needs "
+                     f"{need} processes (or a multiple), have {world}")
+    if n > 1:
+        argv = list(argv if argv is not None else sys.argv[1:])
+        if not args.workdir:
+            argv += ["--workdir", _default_workdir()]
+        rc = launch_local(argv, n)
+        if rc:
+            sys.exit(rc)
+        return None
     if args.tiny and args.demo:
         sys.exit("--tiny and --demo are distinct presets — pick one")
     if args.vae_checkpoint and not args.demo:
@@ -408,7 +423,7 @@ def main(argv=None):
                  "processes with torchrun, or give --coordinator")
     from .parallel.sharding import close_mesh
 
-    mesh = None if args.inference else join_process_group(args)
+    mesh = join_process_group(args) if sharded or not args.inference else None
     try:
         return _run(args, mesh)
     finally:
@@ -484,31 +499,38 @@ def _run(args, mesh):
     if args.inference:
         rank = (args.process_id if args.coordinator
                 else int(os.environ.get("RANK", 0)) if args.distributed else 0)
-        if rank:
+        if rank and mesh is None:
             print(f"process {rank}: --inference runs on process 0 alone")
             return None
         run_inference(cfg, dataset, workdir, guidance_scale=args.guidance_scale,
                       save_attn_maps=args.save_attn_maps, pretrained=pretrained,
-                      fingerprint=fingerprint, device=dev)
+                      fingerprint=fingerprint, device=dev, mesh=mesh,
+                      tp=args.tensor_parallel, sp=args.sp)
         return None
 
     from .training.loop import train
 
-    # processes that joined a group train together, data parallel
+    # processes that joined a group train together: data parallel, under
+    # --tensor-parallel on a (data x model) mesh
     return train(cfg, dataset, workdir=workdir, seed=args.seed,
                  profile_dir=args.profile_dir, resume=args.resume,
                  pretrained_sd=pretrained, pretrained_fingerprint=fingerprint,
                  device=dev, data_parallel=args.data_parallel or args.fsdp,
-                 fsdp=args.fsdp, mesh=mesh)
+                 tensor_parallel=args.tensor_parallel, fsdp=args.fsdp, mesh=mesh)
 
 
 def run_inference(cfg, dataset, workdir, guidance_scale: float = 1.0,
                   save_attn_maps: bool = False, pretrained=None, fingerprint=None,
-                  device=None):
+                  device=None, mesh=None, tp: int = 1, sp: int = 1):
     """Restore the latest checkpoint under ``workdir`` and run the DDIM
     novel-view inference on the test split (batches of 2), writing the
     denoised and target views (PNG, or .npy without PIL) and, on request,
     the ip-stream attention maps to ``workdir/renders``.
+
+    ``mesh`` (``parallel.make_mesh_3d(sp=sp, tp=tp)``'s, with tp or sp > 1):
+    every rank restores and serves with the U-Net sharded
+    (``training.inference.make_sharded_inference_step``), drawing the same
+    noise; rank 0 writes.
 
     A trainable-only checkpoint rebuilds its frozen partition from
     ``pretrained`` (``load_sdxl``'s dict) and is refused when it was
@@ -522,14 +544,15 @@ def run_inference(cfg, dataset, workdir, guidance_scale: float = 1.0,
     from .models.nerf.grid import grid_init
     from .training.checkpoints import (CheckpointManager, frozen_partition_checksum,
                                        verify_frozen_checksum)
-    from .training.inference import make_inference_step
+    from .training.inference import make_inference_step, make_sharded_inference_step
     from .training.joint import eval_budget_for_occupancy, joint_trainable_mask
     from .training.loop import build_initial_params
     from .utils.device import resolve_device
     from .utils.tree import partition
     from .utils.visualization import save_image
 
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    rank0 = mesh is None or mesh.rank == 0
     ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"))
     if ckpt.latest_step() is None:
         sys.exit(f"no checkpoint found under {workdir}/checkpoints")
@@ -576,10 +599,18 @@ def run_inference(cfg, dataset, workdir, guidance_scale: float = 1.0,
     occ_frac = float(grid_state.occ.float().mean())
     budget = eval_budget_for_occupancy(occ_frac, 2 * cfg.latent_hw ** 2, cfg.train)
     print(f"eval budget: occ={occ_frac:.4f} → {budget} samples/batch")
-    infer = make_inference_step(cfg, scheduler, cfg.train.num_inference_steps,
-                                guidance_scale=guidance_scale,
-                                capture_attn_maps=save_attn_maps, sample_budget=budget,
-                                device=dev)
+    if tp > 1 or sp > 1:
+        print(f"serving sharded: seq={sp} model={tp}")
+        build = make_sharded_inference_step(
+            cfg, scheduler, cfg.train.num_inference_steps, mesh=mesh, tp=tp, sp=sp,
+            guidance_scale=guidance_scale, capture_attn_maps=save_attn_maps,
+            sample_budget=budget)
+        params, infer = build(params)
+    else:
+        infer = make_inference_step(cfg, scheduler, cfg.train.num_inference_steps,
+                                    guidance_scale=guidance_scale,
+                                    capture_attn_maps=save_attn_maps, sample_budget=budget,
+                                    device=dev)
     _, _, te_idx = split_dataset(len(dataset), seed=cfg.train.seed)
 
     renders = os.path.join(workdir, "renders")
@@ -591,6 +622,8 @@ def run_inference(cfg, dataset, workdir, guidance_scale: float = 1.0,
                  for k, v in batch.items()}
         out = infer(params, grid_state, batch, generator=generator)
         total_l2 += float(out["l2_loss"])
+        if not rank0:
+            continue
         psnr = out["psnr"].float().cpu().numpy()
         for j in range(out["denoised_image"].shape[0]):
             print(f"image {i}_{j}: PSNR {float(psnr[j, 0]):.2f} "
@@ -603,7 +636,8 @@ def run_inference(cfg, dataset, workdir, guidance_scale: float = 1.0,
             np.savez(os.path.join(renders, f"ip_attn_maps_{i}.npz"),
                      **{f"layer_{n:03d}": m.float().cpu().numpy()
                         for n, m in enumerate(out["ip_attn_maps"])})
-    print(f"Average L2 over test set: {total_l2}")
+    if rank0:
+        print(f"Average L2 over test set: {total_l2}")
 
 
 if __name__ == "__main__":

@@ -14,8 +14,8 @@ Reference quirks kept:
     the conditional and the unconditional stream (image conditioning
     zeroed) as one doubled-batch U-Net call.
 
-The tensor- and sequence-parallel serving wrapper of the reference is not
-ported yet.
+``make_sharded_inference_step`` serves the same step with the U-Net
+tensor- and sequence-parallel over a mesh of processes.
 """
 
 from __future__ import annotations
@@ -40,7 +40,8 @@ def make_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
                         capture_attn_maps: bool = False,
                         sample_budget: Optional[int] = None,
                         device: Optional[torch.device] = None,
-                        stage_hook: Optional[Callable[[str], None]] = None):
+                        stage_hook: Optional[Callable[[str], None]] = None,
+                        tp_axis=None, sp_axis=None):
     """Build the per-batch inference function.
 
     sample_budget: explicit NeRF eval-render budget (e.g. the one from
@@ -54,6 +55,9 @@ def make_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
     stage_hook: called with a stage's name as it ends ("encode", "render",
       "denoise", "decode"), so a caller can synchronize and read a clock
       there; None adds nothing to the step.
+    tp_axis / sp_axis: mesh axes every U-Net call (the unconditional pass
+      under guidance included) runs tensor- and sequence-parallel over; see
+      ``make_sharded_inference_step``.
 
     Returns ``step(params, grid_state, batch, generator=None, draws=None)``
     → dict with the denoised view and PSNR/SSIM/L2 against the target.
@@ -107,7 +111,8 @@ def make_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
         def unet_eps(x, t, capture=False):
             res = sd_forward(params["sd"], torch.cat([x, x]) if guided else x, t,
                              image_embeds, cfg.sd, compute_dtype=compute_dtype,
-                             capture_ip_attn_maps=capture)
+                             capture_ip_attn_maps=capture, tp_axis=tp_axis,
+                             sp_axis=sp_axis)
             eps, maps = res if capture else (res, None)
             if guided:
                 # cond ++ uncond in one call; keep the conditional maps
@@ -158,3 +163,50 @@ def make_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
         return result
 
     return step
+
+
+def make_sharded_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
+                                num_steps: int = 50, *, mesh, tp: int = 1, sp: int = 1,
+                                compute_dtype=torch.bfloat16, guidance_scale: float = 1.0,
+                                capture_attn_maps: bool = False,
+                                sample_budget: Optional[int] = None,
+                                stage_hook: Optional[Callable[[str], None]] = None):
+    """The inference step with the U-Net tensor-parallel over ``mesh``'s
+    ``model`` axis (heads and GEGLU width; tp ∈ {2, 5, 10} for SDXL) and
+    sequence-parallel over its ``seq`` axis (ring attention over latent
+    tokens): the counterpart of the JAX package's shard_map serving
+    wrapper.  ``mesh`` is ``parallel.make_mesh_3d(sp=sp, tp=tp)``'s.  The
+    NeRF render, the VAE and the metrics run replicated on every rank.
+
+    Returns ``build(params) -> (local_params, fn)``: call it once with the
+    whole joint tree (GEGLU kernels permuted and the sharded leaves cut to
+    this rank's slices), then ``fn(local_params, grid_state, batch,
+    generator=None, draws=None)`` as the unsharded step.  Every rank of the
+    mesh calls ``fn`` with the same batch and draws or a generator of the
+    same state: the generator is not folded with the rank (JAX's key is
+    replicated), so every rank draws the same noise and returns the same
+    ``denoised_image``.  Runs on the mesh's device."""
+    from ..parallel.sp import serving_param_specs
+    from ..parallel.tp import axis_block
+    from ..utils.tree import tree_map
+
+    if mesh.shape.get("model", 1) != tp or mesh.shape.get("seq", 1) != sp:
+        raise ValueError(f"mesh {mesh.shape} is not seq={sp} x model={tp}")
+    tp_axis = mesh.axes["model"] if tp > 1 else None
+    sp_axis = mesh.axes["seq"] if sp > 1 else None
+    step = make_inference_step(cfg, scheduler, num_steps, compute_dtype=compute_dtype,
+                               guidance_scale=guidance_scale,
+                               capture_attn_maps=capture_attn_maps,
+                               sample_budget=sample_budget, device=mesh.device,
+                               stage_hook=stage_hook, tp_axis=tp_axis, sp_axis=sp_axis)
+
+    def build(params: Dict):
+        if tp_axis is None:
+            return params, step
+        params, specs = serving_param_specs(params, tp, unet_keys=("sd", "unet"))
+        with torch.no_grad():
+            local = tree_map(lambda x, d: x if d is None else
+                             axis_block(x, d, tp_axis).contiguous().clone(), params, specs)
+        return local, step
+
+    return build

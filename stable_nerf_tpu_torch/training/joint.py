@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -36,7 +36,7 @@ from ..parallel.fsdp import global_token_pairing
 from ..parallel.sharding import all_reduce_mean_
 from ..utils.device import resolve_device
 from ..utils.losses import l1_loss, mse_loss
-from ..utils.tree import tree_leaves, tree_map
+from ..utils.tree import tree_leaves, tree_leaves_with_path, tree_map
 
 
 # Memory model of the full-width train step on an NVIDIA H100 80GB HBM3,
@@ -148,7 +148,7 @@ def forward_iteration(params: Dict, grid_state: OccupancyGridState, batch: Dict,
                       sample_budget: Optional[int] = None,
                       generator: Optional[torch.Generator] = None,
                       draws: Optional[Dict[str, torch.Tensor]] = None,
-                      pair_tokens: Optional[Callable] = None):
+                      pair_tokens: Optional[Callable] = None, tp_axis=None):
     """One joint forward pass → (sd_loss, nerf_loss, aux).
 
     draws: optional injected random numbers — ``vae_eps`` [2B, 4, h, w]
@@ -157,6 +157,8 @@ def forward_iteration(params: Dict, grid_state: OccupancyGridState, batch: Dict,
       ``generator``.
     pair_tokens: ``sd_network.embed_conditions``' pairing of the ip tokens,
       where it is not the local reshape.
+    tp_axis: the model axis the U-Net runs tensor-parallel over (its
+      params this rank's slices, ``parallel.tp.place_joint_for_tp``).
     """
     draws = draws or {}
 
@@ -226,7 +228,8 @@ def forward_iteration(params: Dict, grid_state: OccupancyGridState, batch: Dict,
 
     # 7-8. U-Net prediction + diffusion loss
     noise_pred = sd_forward(params["sd"], noisy_latents, timesteps, image_embeds,
-                            cfg.sd, compute_dtype=compute_dtype, pair_tokens=pair_tokens)
+                            cfg.sd, compute_dtype=compute_dtype, pair_tokens=pair_tokens,
+                            tp_axis=tp_axis)
     sd_loss = mse_loss(noise_pred.float(), noise)
     aux = {"pred_target_latent": pred_target, "weights_sum": out["weights_sum"],
            "noisy_latents": noisy_latents, "noise_pred": noise_pred}
@@ -279,6 +282,16 @@ def make_optimizer(cfg: TrainConfig, params: Dict, mask: Dict) -> torch.optim.Ad
                              eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
 
 
+def optimizer_param_paths(params: Dict, mask: Dict) -> List[str]:
+    """The path (``tree_leaves_with_path``'s, from the root) of each
+    parameter of :func:`make_optimizer`'s optimizer, in its order: the
+    parameter indices of its state dict."""
+    return [f"[{part!r}]{path}"
+            for part in ("sd", "nerf")
+            for (path, _), m in zip(tree_leaves_with_path(params[part]),
+                                    tree_leaves(mask[part])) if m]
+
+
 def make_lr_scheduler(cfg: TrainConfig,
                       optimizer: torch.optim.Optimizer) -> torch.optim.lr_scheduler.LambdaLR:
     """``cfg.lr_schedule`` as a LambdaLR on ``optimizer``, counted in
@@ -300,7 +313,8 @@ def make_train_step(cfg: JointConfig, scheduler: DDIMScheduler,
                     lr_scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
                     sample_budget: Optional[int] = None,
                     compute_dtype=torch.bfloat16, with_vis: bool = False,
-                    device: Optional[torch.device] = None, mesh=None, fsdp=None):
+                    device: Optional[torch.device] = None, mesh=None, fsdp=None,
+                    tp_axis=None):
     """The joint train step: forward, backward into the trainable leaves,
     and an AdamW update every ``cfg.train.grad_accum_steps`` calls (the
     mean of the accumulated gradients, as optax.MultiSteps), after which
@@ -323,6 +337,13 @@ def make_train_step(cfg: JointConfig, scheduler: DDIMScheduler,
     slices; the other gradients are averaged as under ``mesh``.  It computes
     the global batch's step, as the JAX package's GSPMD step does: the ip
     tokens are paired over the global batch (``embed_conditions``).
+    ``tp_axis`` (``parallel.tp.place_joint_for_tp``'s axis, ``params`` its
+    tree): the U-Net runs tensor-parallel, every rank of the model axis on
+    the same rows and draws; ``mesh`` is then the data axis, over which
+    alone the gradients are averaged (the replicated leaves' gradients
+    agree across the model axis already).  Like the JAX package's GSPMD
+    step it computes the global batch's step: the ip tokens are paired over
+    the global batch.
     """
     dev = resolve_device(device)
     if lr_scheduler is None and cfg.train.lr_schedule != "constant":
@@ -331,8 +352,10 @@ def make_train_step(cfg: JointConfig, scheduler: DDIMScheduler,
     pair_tokens = None
     if fsdp is not None:
         mesh = fsdp.mesh
-        if mesh.world > 1:
-            pair_tokens = global_token_pairing(mesh)
+    if tp_axis is not None and mesh is not None and mesh.world == 1:
+        mesh = None                 # tensor parallelism alone: nothing to average
+    if (fsdp is not None or tp_axis is not None) and mesh is not None and mesh.world > 1:
+        pair_tokens = global_token_pairing(mesh)
     accum = cfg.train.grad_accum_steps
     calls = [0]
 
@@ -342,7 +365,7 @@ def make_train_step(cfg: JointConfig, scheduler: DDIMScheduler,
         sd_loss, nerf_loss, aux = forward_iteration(
             used, grid_state, batch, cfg, scheduler, train=True,
             compute_dtype=compute_dtype, sample_budget=sample_budget,
-            generator=generator, draws=draws, pair_tokens=pair_tokens)
+            generator=generator, draws=draws, pair_tokens=pair_tokens, tp_axis=tp_axis)
         total = sd_loss + nerf_loss
         total.backward()
         if fsdp is not None:
@@ -378,8 +401,8 @@ def make_train_step(cfg: JointConfig, scheduler: DDIMScheduler,
 def make_eval_step(cfg: JointConfig, scheduler: DDIMScheduler,
                    sample_budget: Optional[int] = None, *,
                    compute_dtype=torch.bfloat16,
-                   device: Optional[torch.device] = None):
-    """Validation forward, no grad.
+                   device: Optional[torch.device] = None, tp_axis=None):
+    """Validation forward, no grad; ``tp_axis`` as in :func:`make_train_step`.
 
     ``sample_budget``: explicit eval render budget (e.g. the one from
     :func:`eval_budget_for_occupancy`); None → the static eval default.
@@ -393,7 +416,7 @@ def make_eval_step(cfg: JointConfig, scheduler: DDIMScheduler,
             sd_loss, nerf_loss, _ = forward_iteration(
                 params, grid_state, batch, cfg, scheduler, train=False,
                 compute_dtype=compute_dtype, sample_budget=sample_budget,
-                generator=generator, draws=draws)
+                generator=generator, draws=draws, tp_axis=tp_axis)
         return {"loss": sd_loss + nerf_loss, "sd_loss": sd_loss,
                 "nerf_loss": nerf_loss}
 

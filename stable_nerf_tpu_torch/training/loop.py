@@ -12,8 +12,9 @@ sample budgets and the stochastic-encode warm-up.
 Pretrained SDXL weights (``models.diffusion.weights.load_sdxl``) overlay
 the random init leaf by leaf in ``build_initial_params``.  A restore loads
 on the CPU and copies into the live tensors, then into the optimizer, so
-the card never holds the state twice.  The JAX loop's tensor-parallel
-path is not ported yet.
+the card never holds the state twice.  As one rank of a (data × model)
+mesh the U-Net trains tensor-parallel (``parallel.tp``), alone or under
+FSDP.
 """
 
 from __future__ import annotations
@@ -39,8 +40,9 @@ from ..models.nerf.grid import grid_init, mark_untrained_grid, update_extra_stat
 from ..models.nerf.network import nerf_density, nerf_init
 from ..ops.compaction import suggest_sample_budget
 from ..parallel.fsdp import place_joint_for_fsdp
-from ..parallel.sharding import (barrier, close_mesh, make_mesh, make_parallel_train_step,
-                                 process_shard_indices, replicate)
+from ..parallel.sharding import (barrier, close_mesh, make_mesh, make_mesh_2d,
+                                 make_parallel_train_step, process_shard_indices, replicate)
+from ..parallel.tp import place_joint_for_tp
 from ..utils.device import resolve_device
 from ..utils.profiling import StepTimer, device_memory_stats
 from ..utils.tree import dealias, partition, tree_leaves, tree_map
@@ -50,10 +52,8 @@ from .checkpoints import (CheckpointManager, copy_into, frozen_partition_checksu
 from .inference import make_inference_step
 from .joint import (JointConfig, cast_frozen, derive_train_sample_budget,
                     device_hbm_limit, eval_budget_for_occupancy, joint_trainable_mask,
-                    make_eval_step, make_lr_scheduler, make_optimizer, make_train_step)
-
-NOT_PORTED_MODEL_AXIS = ("is not ported yet: ROADMAP.md §1 queue, parallel serving "
-                         "and model-axis parallelism (tp.py, sp.py)")
+                    make_eval_step, make_lr_scheduler, make_optimizer, make_train_step,
+                    optimizer_param_paths)
 
 
 def _install_sigterm_flag():
@@ -211,15 +211,29 @@ def train(cfg: JointConfig, dataset, *, workdir: str = "output", seed: int = 0,
     checkpoints, in the single-device format.  ``fsdp``: the SD tree and
     its AdamW moments are sharded over the ranks as well
     (``parallel.fsdp``), gathered whole for validation, inference and
-    checkpoints; the returned params are whole.  ``tensor_parallel`` > 1
-    is not ported yet."""
-    if tensor_parallel > 1:
-        raise NotImplementedError(f"tensor_parallel={tensor_parallel} "
-                                  + NOT_PORTED_MODEL_AXIS)
+    checkpoints; the returned params are whole.
+
+    ``tensor_parallel`` > 1 (or a ``mesh`` from ``parallel.make_mesh_2d``):
+    the world is a (data × model) mesh of ``world / tensor_parallel`` data
+    ranks, the model axis innermost (counterpart of the JAX loop's 2-D
+    mesh; the world must divide by ``tensor_parallel``, SDXL's heads admit
+    2, 5 and 10).  The U-Net's attention and GEGLU leaves are cut over the
+    model axis (``parallel.tp``), AdamW runs on each rank's slices, the
+    ranks of a model group read the same rows and draws, and the gradients
+    are averaged over the data axis alone; the global batch is
+    ``batch_size × world / tensor_parallel``.  Validation and the
+    interleaved inference run tensor-parallel too (inference on the model
+    group of data rank 0); checkpoints are gathered and unpermuted into the
+    single-device format, and a restore cuts them back.  With ``fsdp`` the
+    rank's slices are sharded over the data axis as well."""
     dev = resolve_device(device)
     # a world of one made here is closed here; a launcher's group is adopted
-    own_mesh = mesh is None and (data_parallel or fsdp) and not dist.is_initialized()
-    if mesh is None and (data_parallel or fsdp):
+    own_mesh = (mesh is None and (data_parallel or fsdp or tensor_parallel > 1)
+                and not dist.is_initialized())
+    if tensor_parallel > 1 and (mesh is None or mesh.shape.get("model") != tensor_parallel):
+        kw = {} if mesh is None else {"backend": mesh.backend}
+        mesh = make_mesh_2d(dev if mesh is None else mesh.device, tp=tensor_parallel, **kw)
+    elif mesh is None and (data_parallel or fsdp):
         mesh = make_mesh(dev)
     if mesh is not None:
         dev = mesh.device
@@ -243,6 +257,11 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
                 mesh=None, fsdp: bool = False):
     rank0 = mesh is None or mesh.rank == 0
     world = 1 if mesh is None else mesh.world
+    # the data axis (the world of a 1-D mesh) and, under TP, the model axis
+    data = None if mesh is None else mesh.axes["data"]
+    model = None if mesh is None else mesh.axes.get("model")
+    if model is not None and model.world == 1:
+        model = None
     if not rank0:
         log_fn = lambda *a, **k: None      # noqa: E731 — rank 0 alone logs
     os.makedirs(workdir, exist_ok=True)
@@ -280,7 +299,9 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
         # every rank starts from rank 0's bits
         replicate((params, list(grid_state)), mesh)
         log_fn(f"data parallel: rank {mesh.rank} of {world} on {dev} over "
-               f"{mesh.backend}" + (", fully sharded" if fsdp else ""))
+               f"{mesh.backend}" + (", fully sharded" if fsdp else "")
+               + (f", tensor parallel over {model.world} ({data.world} data ranks)"
+                  if model is not None else ""))
     trainable_share = float((grid_state.density_grid >= 0).float().mean())
     log_fn(f"grid: {trainable_share:.4f} of the cells seen by a camera")
 
@@ -308,17 +329,32 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
                             if isinstance(x, torch.Tensor))
     # the whole tree: what a step holds of the params (under FSDP, gathered)
     whole_param_bytes = nbytes(tree_leaves(params))
-    layout = None
+    layout = tp = None
     if fsdp:
-        params, layout = place_joint_for_fsdp(params, mesh)
-        log_fn(f"fsdp: {len(layout.leaves)} SD leaves sharded over {world} ranks; "
+        params, layout = place_joint_for_fsdp(params, data, tp_axis=model)
+        tp = layout.tp
+        log_fn(f"fsdp: {len(layout.leaves)} SD leaves sharded over {data.world} ranks; "
                f"{nbytes(tree_leaves(params))} of {whole_param_bytes} param bytes "
                f"held by a rank")
+    elif model is not None:
+        params, tp = place_joint_for_tp(params, model)
+    if tp is not None:
+        log_fn(f"tensor parallel: {len(tp.leaves)} U-Net leaves cut over {model.world} "
+               f"ranks; {nbytes(tree_leaves(params))} of {whole_param_bytes} param "
+               f"bytes held by a rank")
     optimizer = make_optimizer(cfg.train, params, mask)
     lr_scheduler = make_lr_scheduler(cfg.train, optimizer)
+    param_paths = optimizer_param_paths(params, mask)
 
     def whole_params(tree):
-        """``tree`` with its sharded leaves gathered (every rank calls it)."""
+        """``tree`` with its sharded leaves gathered, in the single-device
+        layout (every rank calls it)."""
+        if layout is not None:
+            tree = layout.gather(tree, with_grad=False)
+        return tp.gather(tree) if tp is not None else tree
+
+    def tp_params(tree):
+        """What a tensor-parallel step reads: the FSDP-gathered slices."""
         return layout.gather(tree, with_grad=False) if layout is not None else tree
 
     def save_ckpt(step_num: int, wait: bool = False):
@@ -332,6 +368,8 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
         p = whole_params(p)
         opt_sd = (layout.optimizer_state_dict(optimizer) if layout is not None
                   else optimizer.state_dict())
+        if tp is not None:
+            opt_sd = tp.gather_optimizer_state(opt_sd, param_paths)
         opt_state = {"optimizer": opt_sd, "lr_scheduler": lr_scheduler.state_dict()}
         if rank0 and ckpt.save(step_num, p, opt_state, grid_state,
                                extra={"epoch": step_num}, wait=wait, params_key=pk,
@@ -354,13 +392,18 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
             live = partition(params, mask)[0] if t_only else params
             template = {pk: live, "opt_state": None, "grid_state": grid_state,
                         "extra": None}
-            if layout is None:
+            if layout is None and tp is None:
                 state = ckpt.restore(template=template)
             else:
                 # a whole (single-device) checkpoint: cut each sharded leaf
-                # and moment to this rank's block
+                # and moment to this rank's slice, then block
                 raw = ckpt.restore()
-                raw[pk] = layout.shard_like(raw[pk])
+                if tp is not None:
+                    raw[pk] = tp.shard(raw[pk])
+                    raw["opt_state"]["optimizer"] = tp.shard_optimizer_state(
+                        raw["opt_state"]["optimizer"], param_paths)
+                if layout is not None:
+                    raw[pk] = layout.shard_like(raw[pk])
                 state = copy_into(template, raw)
             grid_state = state["grid_state"]
             if layout is None:
@@ -389,10 +432,10 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
                     cfg.nerf, hash_stochastic=stochastic))
             step = make_train_step(
                 step_cfg, scheduler, optimizer, lr_scheduler=lr_scheduler,
-                sample_budget=budget, with_vis=with_vis, device=dev, mesh=mesh,
-                fsdp=layout)
+                sample_budget=budget, with_vis=with_vis, device=dev, mesh=data,
+                fsdp=layout, tp_axis=model)
             step_cache[(budget, stochastic)] = (step if mesh is None
-                                                else make_parallel_train_step(step, mesh))
+                                                else make_parallel_train_step(step, data))
         return step_cache[(budget, stochastic)]
 
     batch_size = cfg.train.batch_size
@@ -422,14 +465,14 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
     def eval_for_budget(budget):
         if budget not in eval_cache:
             eval_cache[budget] = make_eval_step(cfg, scheduler, sample_budget=budget,
-                                                device=dev)
+                                                device=dev, tp_axis=model)
         return eval_cache[budget]
 
     def infer_for_budget(budget):
         if budget not in infer_cache:
             infer_cache[budget] = make_inference_step(
                 cfg, scheduler, cfg.train.num_inference_steps, sample_budget=budget,
-                device=dev)
+                device=dev, tp_axis=model)
         return infer_cache[budget]
 
     def density_fn(x):
@@ -450,8 +493,8 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
         return bool(flag.item())
 
     tr_idx, va_idx, te_idx = split_dataset(len(dataset), 0.8, 0.1, seed=seed)
-    if world > 1:
-        tr_idx = tr_idx[process_shard_indices(len(tr_idx), mesh)]
+    if data is not None and data.world > 1:
+        tr_idx = tr_idx[process_shard_indices(len(tr_idx), data)]
     epochs = epochs if epochs is not None else cfg.train.epochs
     history = []
     timer = StepTimer()
@@ -528,7 +571,7 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
         # when the slowest rank's does: wait before the clock
         wait_all()
         train_wall = time.perf_counter() - t_train0
-        epoch_rays = rays_per_step * world * len(train_metrics)
+        epoch_rays = rays_per_step * (1 if data is None else data.world) * len(train_metrics)
         timer.observe(steps=len(train_metrics), rays=epoch_rays, seconds=train_wall)
         if profiler is not None:        # an epoch shorter than the trace window
             sync()
@@ -552,8 +595,10 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
                                                or epoch == epochs - 1)
         run_infer = (cfg.train.inference_every > 0
                      and (epoch + 1) % cfg.train.inference_every == 0 and len(te_idx) > 0)
-        # validation and inference read the whole tree: gathered once under FSDP
-        eval_params = whole_params(params) if run_val or run_infer else None
+        # validation and inference read the whole tree (under TP, this rank's
+        # slices): gathered once under FSDP
+        eval_params = ((tp_params if tp is not None else whole_params)(params)
+                       if run_val or run_infer else None)
 
         val_metrics = []
         if run_val:
@@ -602,7 +647,8 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
                f"val {record['val_loss']:.4f} ({record['rays_per_sec']:.0f} rays/s, "
                f"{len(train_metrics)} steps in {train_wall:.3f} s)")
 
-        if run_infer and rank0:
+        # rank 0 serves; under TP with the rest of its model group
+        if run_infer and (rank0 or model is not None and data.rank == 0):
             # inference renders the 2 target views of a batch
             t0 = time.perf_counter()
             infer_fn = infer_for_budget(eval_budget_for_occupancy(
@@ -623,7 +669,7 @@ def _train_impl(cfg: JointConfig, dataset, *, workdir: str, seed: int,
                        f"l2={inf_metrics[-1]['l2_loss']:.4f}")
             log_fn(f"epoch {epoch}: inference {len(inf_metrics)} requests in "
                    f"{time.perf_counter() - t0:.3f} s")
-            if inf_metrics:
+            if inf_metrics and rank0:
                 inf_record = {"epoch": epoch, "kind": "inference"}
                 for k in inf_metrics[0]:
                     inf_record[f"inference_{k}"] = float(np.mean([m[k] for m in inf_metrics]))

@@ -62,7 +62,8 @@ def test_port_imports_neither_jax_nor_reference_package():
                 "models.diffusion.weights", "models.diffusion.clip_text",
                 "models.diffusion.clip_vision", "models.diffusion.tokenizer",
                 "data.native_loader", "models.nerf.error_map", "models.nerf.tiny",
-                "parallel", "parallel.sharding", "parallel.fsdp"):
+                "parallel", "parallel.sharding", "parallel.fsdp", "parallel.tp",
+                "parallel.sp"):
         assert f"stable_nerf_tpu_torch.{mod}" in names.split(), mod
 
 
@@ -88,7 +89,8 @@ def _entry_points():
     from stable_nerf_tpu_torch.models.nerf.error_map import error_map_init
     from stable_nerf_tpu_torch.config import TinyNeRFConfig
     from stable_nerf_tpu_torch.models.nerf.tiny import tiny_nerf_init
-    from stable_nerf_tpu_torch.parallel import make_mesh
+    from stable_nerf_tpu_torch.parallel import make_mesh, make_mesh_2d
+    from stable_nerf_tpu_torch.training.inference import make_sharded_inference_step
     import bench_torch
     import chip_smoke
 
@@ -128,6 +130,11 @@ def _entry_points():
         "cli_coordinator": lambda: cli.main(["--tiny", "--coordinator", "localhost:1",
                                              "--num-processes", "2", "--process-id", "0",
                                              "--workdir", os.path.join(REPO, "no-such-dir")]),
+        "make_mesh_2d": lambda: make_mesh_2d(),
+        "make_sharded_inference_step": lambda: make_sharded_inference_step(
+            JointConfig(), None, mesh=make_mesh_2d()),
+        "cli_tensor_parallel": lambda: cli.main(["--tiny", "--dataset", "synthetic",
+                                                 "--tensor-parallel", "2"]),
     }
 
 
@@ -141,7 +148,8 @@ def _entry_points():
                                   "bench_joint_full_sdxl_script", "profile_sd_denoise_script",
                                   "run_sd_script", "validate_script", "make_mesh",
                                   "train_data_parallel", "cli_data_parallel",
-                                  "cli_coordinator"])
+                                  "cli_coordinator", "make_mesh_2d",
+                                  "make_sharded_inference_step", "cli_tensor_parallel"])
 def test_entry_points_default_to_cuda_and_refuse_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")

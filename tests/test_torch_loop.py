@@ -326,21 +326,21 @@ def test_cli_builds_the_configuration_train_py_builds():
         assert got.sd.sd == convert.config_from_jax(want.sd.sd)
 
 
-@pytest.mark.parametrize("flag", [["--tensor-parallel", "2"], ["--sp", "2"]])
-def test_cli_refuses_unported_flags(flag):
+@pytest.mark.parametrize("flag,words", [
+    (["--sp", "2"], ["--sp is a serving lever"]),
+    (["--tensor-parallel", "2"], ["--tensor-parallel 2", "needs 2 processes", "have 1"])])
+def test_cli_refuses_unported_flags(flag, words):
+    """JAX's refusals (train.py): ``--sp`` without ``--inference``, and a
+    tensor-parallel world of one process."""
     with pytest.raises(SystemExit) as e:
         tcli.main(ARGS + flag + ["--device", "cpu"])
-    assert "not ported yet" in str(e.value.code) and "ROADMAP.md" in str(e.value.code)
-    assert flag[0] in str(e.value.code)
+    assert all(w in str(e.value.code) for w in words), e.value.code
 
 
 def test_loop_refuses_parallel_and_pretrained_weights():
-    """Tensor parallelism is not ported (data parallelism and FSDP are,
-    tests/test_torch_parallel.py); pretrained weights are, and a tree that
-    does not fit the init is refused before any step."""
+    """Pretrained weights are ported, and a tree that does not fit the init
+    is refused before any step (tensor parallelism: tests/test_torch_tp.py)."""
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="model-axis parallelism"):
-        tloop.train(tcfg, None, device="cpu", tensor_parallel=2)
     with pytest.raises(KeyError, match="vae"):
         tloop.build_initial_params(tcfg, 0, 1, pretrained_sd={"vae": {}}, device="cpu")
 
