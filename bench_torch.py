@@ -70,15 +70,6 @@ DEMO_METRICS = os.path.join("output_port_demo", "metrics.jsonl")
 # the JAX package's TPU records: the port's sweeps never write them
 TPU_RECORDS = ("BATCH_SWEEP.json", "HYBRID_SWEEP.json")
 
-# the committed synthetic scene's spheres in ngp space (center, radius): a
-# copy of SPHERES in scripts/make_synthetic_scene.py, which the port does
-# not import
-SCENE_SPHERES = (
-    (np.array([0.00, 0.00, 0.00]), 0.16),
-    (np.array([0.18, 0.10, 0.12]), 0.09),
-    (np.array([-0.16, -0.06, 0.14]), 0.075),
-)
-
 # dense (no sparsity) bf16 tensor-core peaks by torch.cuda.get_device_name,
 # from NVIDIA's H100 data sheet; an unknown card gets no MFU
 PEAK_BF16_FLOPS = {
@@ -120,17 +111,48 @@ def _sync():
     torch.cuda.synchronize()
 
 
-def best_of_blocks(fn, n_blocks=3, n_iters=10):
+def best_of_blocks(fn, n_blocks=3, n_iters=10, sync=None):
     """Steady-state seconds an iteration, the best of ``n_blocks`` blocks
-    of ``n_iters`` calls ``fn(i)``, each block ending in a synchronize."""
+    of ``n_iters`` calls ``fn(i)``, each block ending in ``sync()`` (by
+    default a synchronize of the card)."""
+    sync = sync or _sync
     best = float("inf")
     for _ in range(n_blocks):
         t0 = time.perf_counter()
         for i in range(n_iters):
             fn(i)
-        _sync()
+        sync()
         best = min(best, (time.perf_counter() - t0) / n_iters)
     return best
+
+
+def best_ms(fn, device, n_iters=10, n_blocks=3) -> float:
+    """Steady-state ms a call of ``fn()`` on ``device``: one warm-up call,
+    then :func:`best_of_blocks`, each block ending in a synchronize of the
+    card (the host clock alone on the CPU, which measures PyTorch's CPU
+    kernels, not a device).  The port's study scripts time eagerly with
+    it."""
+    import torch
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+
+    fn()
+    sync()
+    return best_of_blocks(lambda i: fn(), n_blocks, n_iters, sync) * 1e3
+
+
+def device_line(device) -> str:
+    """What the times were taken on: ``nvidia-smi``'s name and power limit
+    of the card, or a note that a CPU run's times are the host's."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return "cpu (host clock: PyTorch's CPU kernels, no device time)"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def _card():
@@ -193,6 +215,19 @@ def bench_nerf_render(stochastic: bool = False):
     return n_rays / dt, dt, launches
 
 
+def scene_spheres():
+    """The committed synthetic scene's spheres in ngp space, (center,
+    radius, rgb) each: ``SPHERES`` of scripts/make_torch_synthetic_scene.py,
+    the port's one copy, loaded from its file."""
+    import importlib.util
+
+    path = os.path.join(HERE, "scripts", "make_torch_synthetic_scene.py")
+    spec = importlib.util.spec_from_file_location("make_torch_synthetic_scene", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.SPHERES
+
+
 def _scene_occupancy_grid(cfg):
     """Occupancy of the committed synthetic three-sphere scene on the
     grid: the occupancy a converged fit reaches, computed analytically.
@@ -205,7 +240,7 @@ def _scene_occupancy_grid(cfg):
     pts = np.stack([gx, gy, gz], -1).reshape(-1, 3)
     occ = np.zeros((H ** 3,), bool)
     dilate = 2.0 * cfg.bound / H * np.sqrt(3.0)
-    for center, radius in SCENE_SPHERES:
+    for center, radius, _ in scene_spheres():
         occ |= np.linalg.norm(pts - center, axis=-1) <= radius + dilate
     return occ.reshape(1, H, H, H)
 

@@ -122,7 +122,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                sequence-parallel (sp 2, ring attention): ms a request,
                all-reduces or ring hops and their bytes, each rank's peak;
                the ranks' images bit-equal, the same weights and draws as
-               one process's request, held to it by PSNR; a tiny float32
+               one process's 10-step request (on the seed's weights, the
+               serve phase's kernels warm), held to it by PSNR; a tiny float32
                request (5 DDIM steps, guidance 3) held to one process's key
                by key.  sp_serve also records a probe of gloo's
                point-to-point path on CUDA tensors (the ring stages its
@@ -132,7 +133,29 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                steps a rank (ms, K1 launches, peak and resting bytes against
                a dp_train rank's);
   fsdp_tp_train  four ranks, data 2 x model 2, fully sharded over data: the
-               tiny float32 update against one process's.
+               tiny float32 update against one process's;
+  run_sd_sharded  scripts/run_torch_sd.py's sharded denoise (``denoise(...,
+               mesh=)``) at full width (512², bf16, 3 DDIM steps) on two
+               ranks over gloo (``--rank-job run_sd``), tp 2 then sp 2:
+               s a step, all-reduces or ring hops and their bytes, the
+               ranks' latents bit-equal and held to the script's
+               single-process denoise from the same start latents; then
+               ``python scripts/run_torch_sd.py --tp 2`` on this one-card
+               machine must refuse (exit non-zero);
+  scripts      the eight study scripts (scripts/bench_torch_{scatter_variants,
+               step_ablation,eval_ablation,encode_split,table_dtype,
+               gather_by_table,unet_layout,grid_refresh}.py) in this
+               process at their defaults: every row finite, the scatter
+               kernel's rows within 1e-5 of ``index_add_`` (of the largest
+               magnitude), the kernel's launches per script; and
+               scripts/make_torch_sdxl_key_manifest.py, whose output must
+               equal the committed tests/fixtures/ manifests byte for byte.
+               Inside sd_scripts, the check half of
+               scripts/weights_torch_drill_full_size.py (precheck,
+               fingerprint, strict load on the host, export, float16 bit
+               compare) runs on the pretrained phase's directory.
+Every phase's row carries its seconds (``seconds``; rows of one launch
+share it, ``seconds_of`` names them); a ``run_time`` line sums them.
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last the device
 line ``{"ok": true, "device": {...}}``.  TF32 is off throughout.
 
@@ -147,6 +170,7 @@ shell script.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -181,6 +205,22 @@ DEMO_EPOCHS = 2
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def with_seconds(fn, *args):
+    """``fn(*args)``, with the seconds it took written into every phase row
+    it returns (a row, or rows in a tuple or list beside other results;
+    rows of one call share its seconds and ``seconds_of`` names them)."""
+    t = time.perf_counter()
+    out = fn(*args)
+    seconds = time.perf_counter() - t
+    rows = [x for x in (out if isinstance(out, (tuple, list)) else (out,))
+            if isinstance(x, dict) and "phase" in x]
+    for row in rows:
+        row["seconds"] = seconds
+        if len(rows) > 1:
+            row["seconds_of"] = [r["phase"] for r in rows]
+    return out
 
 
 def nvidia_smi() -> str:
@@ -1719,7 +1759,9 @@ def bench(here):
 def sd_scripts(here, ckpt_dir):
     """scripts/validate_torch_sdxl_checkpoint.py and scripts/run_torch_sd.py
     on the pretrained phase's SDXL directory (seeded weights), each in a
-    process of its own.  The validator's checksums are reported; every
+    process of its own, and the check half of
+    scripts/weights_torch_drill_full_size.py in this one (it must find the
+    round trip bit-identical).  The validator's checksums are reported; every
     check must pass but the VAE's reconstruction PSNR above 20 dB, which a
     random VAE fails by design (its PSNR must be finite).  run_torch_sd's
     reconstruction MSE must be finite and its denoised image written
@@ -1748,7 +1790,13 @@ def sd_scripts(here, ckpt_dir):
                     if f.startswith("denoised.png")) if os.path.isdir(
                         os.path.join(out, "run_sd")) else []
     psnr = report.get("vae", {}).get("reconstruction_psnr_db")
-    row = {"phase": "sd_scripts",
+    # the weights drill's check half on the same full-width directory: strict
+    # load on the host, export, float16 bits against the bytes on disk
+    t = time.perf_counter()
+    drill = load_script("weights_torch_drill_full_size").check(ckpt_dir)
+    drill["s"] = time.perf_counter() - t
+    gc.collect()
+    row = {"phase": "sd_scripts", "weights_drill_check": drill,
            "validate": {"rc": val["rc"], "s": val["s"], "report": report,
                         "tail": val["tail"]},
            "run_sd": {"rc": sd["rc"], "s": sd["s"], "mse": float(mse.group(1)) if mse else None,
@@ -1759,7 +1807,8 @@ def sd_scripts(here, ckpt_dir):
         and psnr is not None and math.isfinite(psnr)
         and all(f"checksum/{k}" in report for k in ("unet", "vae", "text_encoder",
                                                    "text_encoder_2"))
-        and sd["rc"] == 0 and mse and math.isfinite(float(mse.group(1))) and images)
+        and sd["rc"] == 0 and mse and math.isfinite(float(mse.group(1))) and images
+        and drill["bit_identical"])
     return row
 
 
@@ -2256,6 +2305,7 @@ FSDP_TP_RANKS = 4        # data 2 x model 2, at the tiny size
 # (PSNR of one against the other), the tiny float32 request entry by entry
 SERVE_PSNR_DB = 30.0
 TINY_SERVE_TOL = 1e-3
+MODEL_SERVE_STEPS = 10   # DDIM steps of the sharded full-width requests (the depth cut)
 
 
 def param_checksum(tree) -> float:
@@ -2319,8 +2369,9 @@ def ring_probe_job(dev, argv, outdir):
 
 def serve_job(dev, argv, outdir):
     """tp_serve, then sp_serve: the tiny float32 request (5 DDIM steps,
-    guidance 3) and the full-width one (a 2-step warm-up, then 50 steps)
-    sharded, each rank's results written for the parent to compare."""
+    guidance 3) and the full-width one (a 2-step warm-up, then
+    MODEL_SERVE_STEPS steps) sharded, each rank's results written for the
+    parent to compare."""
     import torch
 
     from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
@@ -2348,7 +2399,7 @@ def serve_job(dev, argv, outdir):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         clock = StageClock(dev)
-        build = make_sharded_inference_step(cfg, sched, cfg.train.num_inference_steps,
+        build = make_sharded_inference_step(cfg, sched, MODEL_SERVE_STEPS,
                                             mesh=mesh, tp=tp, sp=sp, stage_hook=clock)
         local, step = build(params)
         axes = dict(tp_axis=mesh.axes["model"] if tp > 1 else None,
@@ -2450,9 +2501,71 @@ def tp_train_job(dev, argv, outdir, fsdp=False):
     return mesh
 
 
+SD_SHARDED_STEPS = 3      # DDIM steps of run_sd_sharded's full-width denoise
+SD_SHARDED_CASES = (("tp", 1, 2), ("sp", 2, 1))     # (name, sp, tp)
+# the sharded latents against one process's, both bf16 through 3 steps:
+# PSNR of the difference over the reference's peak.  The sharded serving
+# request reads 77.8 dB against one process's image after 50 steps and the
+# decode (PERF.md §6); the latents before any decode keep every rounding
+# difference of the sharded sums (bf16's 2^-8 relative step), so they are
+# held at 40 dB, well above what a wrong cut gives (a misplaced head or
+# token block moves eps by its own size: under 20 dB)
+SD_SHARDED_PSNR_DB = 40.0
+
+
+def run_sd_inputs(dev):
+    """run_torch_sd's full-width config, its seed-0 params (IP heads from
+    to_k/to_v), start latents [1, 4, 64, 64] and zero conditioning, on
+    ``dev``: every rank and the parent draw the same."""
+    import torch
+
+    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+    from stable_nerf_tpu_torch.models.diffusion.sd_network import (init_ip_from_unet,
+                                                                   sd_network_init)
+
+    run_sd = load_script("run_torch_sd")
+    cfg = run_sd.network_config(False, 512)
+    params = init_ip_from_unet(sd_network_init(0, cfg, device=dev))
+    enc = cfg.sd.latent_size
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    latents = torch.randn((1, 4, enc, enc), generator=g, device=dev)
+    cond = torch.zeros((2, cfg.sd.cond_channels, enc, enc), device=dev)
+    return run_sd, cfg, params, latents, cond, DDIMScheduler.create(cfg.scheduler, device=dev)
+
+
+def run_sd_job(dev, argv, outdir):
+    """run_sd_sharded: run_torch_sd's sharded denoise, tp 2 then sp 2, one
+    warm-up step, then SD_SHARDED_STEPS timed; each rank's latents and
+    counts written for the parent to compare."""
+    import torch
+
+    run_sd, cfg, params, latents, cond, sched = run_sd_inputs(dev)
+    rec, mesh = {"param_checksum": param_checksum(params)}, None
+    for name, sp, tp in SD_SHARDED_CASES:
+        mesh = rank_mesh(dev, argv, sp=sp, tp=tp)
+        local = run_sd.shard_params(params, mesh)
+        run_sd.denoise(local, latents, cond, cfg, sched, 1, mesh=mesh)
+        for k in list(mesh.counts):
+            mesh.counts[k] = 0
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = run_sd.denoise(local, latents, cond, cfg, sched, SD_SHARDED_STEPS, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        rec[name] = {"mesh": mesh.shape, "s_per_step": (time.perf_counter() - t)
+                     / SD_SHARDED_STEPS, "counts": dict(mesh.counts),
+                     "finite": bool(out.isfinite().all())}
+        torch.save(out.float().cpu(), os.path.join(outdir, f"run_sd_{name}_rank{mesh.rank}.pt"))
+        del local, out
+        torch.cuda.empty_cache()
+    with open(os.path.join(outdir, f"run_sd{mesh.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return mesh
+
+
 RANK_JOBS = {"ring_probe": ring_probe_job, "serve": serve_job, "tp_train": tp_train_job,
              "fsdp_tp_train": lambda dev, argv, outdir: tp_train_job(dev, argv, outdir,
-                                                                     fsdp=True)}
+                                                                     fsdp=True),
+             "run_sd": run_sd_job}
 
 
 def model_job(outdir, argv, job):
@@ -2496,7 +2609,9 @@ def read_json(path):
 def model_axis(here, dev, cfg, served, dp_row):
     """tp_serve, sp_serve, tp_train and fsdp_tp_train: ranks of this script
     on the one card over gloo (NCCL refuses two ranks on one device), each
-    checked against one process's result on the same weights and draws."""
+    checked against one process's result on the same weights and draws
+    (the serving ones against a MODEL_SERVE_STEPS request on the seed's
+    untrained weights, the serve phase's kernels already warm)."""
     import shutil
 
     import torch
@@ -2519,9 +2634,7 @@ def model_axis(here, dev, cfg, served, dp_row):
     checksum = param_checksum(params)
     batch, draws = serve_inputs(cfg, dev)
     clock = StageClock(dev)
-    step = make_inference_step(cfg, sched, cfg.train.num_inference_steps, device=dev,
-                               stage_hook=clock)
-    make_inference_step(cfg, sched, 2, device=dev)(params, grid, batch, draws=draws)
+    step = make_inference_step(cfg, sched, MODEL_SERVE_STEPS, device=dev, stage_hook=clock)
     torch.cuda.reset_peak_memory_stats(dev)
     single, single_ms, single_stages = clock.request(step, params, grid, batch, draws=draws)
     single_img = single["denoised_image"].float().cpu()
@@ -2542,11 +2655,11 @@ def model_axis(here, dev, cfg, served, dp_row):
     for name in ("tp_serve", "sp_serve"):
         row = {"phase": name, "ranks": RANKS, "backend": "gloo", "launch_rc": rc,
                "launch_s": wall, "scenes_per_request": SERVE_BATCH,
-               "ddim_steps": cfg.train.num_inference_steps,
+               "ddim_steps": MODEL_SERVE_STEPS,
                "single_process_request_ms": single_ms,
                "single_process_stages_ms": single_stages,
                "single_process_max_memory_allocated": single_peak,
-               "serve_steady_request_ms": served["steady_request_ms"]}
+               "serve_50_step_request_ms": served["steady_request_ms"]}
         if name == "sp_serve":
             row["ring_transport"] = "gloo, staged through host tensors"
             # a rank that aborts inside gloo writes nothing: its exit code says so
@@ -2614,6 +2727,122 @@ def model_axis(here, dev, cfg, served, dp_row):
             row["ok"] = False
         rows.append(row)
     return rows
+
+
+def run_sd_sharded(here, dev):
+    """scripts/run_torch_sd.py's sharded denoise at full width on two ranks
+    over gloo, tp 2 then sp 2 (``run_sd_job``), each held to the script's
+    single-process denoise from the same start latents; then the script's
+    own launch on this one card, ``--tp 2``, which must refuse."""
+    import shutil
+
+    import torch
+
+    outdir = os.path.join(here, "chiprun_out", "run_sd_sharded")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    run_sd, cfg, params, latents, cond, sched = run_sd_inputs(dev)
+    checksum = param_checksum(params)
+    run_sd.denoise(params, latents, cond, cfg, sched, 1)
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    single = run_sd.denoise(params, latents, cond, cfg, sched, SD_SHARDED_STEPS)
+    torch.cuda.synchronize(dev)
+    single_s = (time.perf_counter() - t) / SD_SHARDED_STEPS
+    single = single.float().cpu()
+    del params, latents, cond
+    torch.cuda.empty_cache()
+    rc, wall = launch_job(here, outdir, "run_sd", RANKS, MODEL_TIMEOUT_S)
+    ranks = [read_json(os.path.join(outdir, f"run_sd{r}.json")) for r in range(RANKS)]
+    row = {"phase": "run_sd_sharded", "ranks": RANKS, "backend": "gloo", "launch_rc": rc,
+           "launch_s": wall, "image": 512, "latents": list(single.shape),
+           "ddim_steps": SD_SHARDED_STEPS, "compute_dtype": "bfloat16",
+           "single_process_s_per_step": single_s,
+           "tolerance": {"psnr_db_over_peak": SD_SHARDED_PSNR_DB}, "cases": {}}
+    ok = rc == 0 and all(ranks)
+    for name, sp, tp in SD_SHARDED_CASES:
+        paths = [os.path.join(outdir, f"run_sd_{name}_rank{r}.pt") for r in range(RANKS)]
+        if not (ok and all(map(os.path.exists, paths))):
+            ok = False
+            continue
+        got = [torch.load(p) for p in paths]
+        err = got[0] - single
+        psnr = 20 * math.log10(float(single.abs().max())
+                               / max(float(err.pow(2).mean().sqrt()), 1e-30))
+        case = {"sp": sp, "tp": tp, "per_rank": [r[name] for r in ranks],
+                "ranks_bit_equal": all(torch.equal(x, got[0]) for x in got[1:]),
+                "vs_single_max_abs": float(err.abs().max()),
+                "vs_single_psnr_db_over_peak": psnr}
+        case["ok"] = bool(case["ranks_bit_equal"] and psnr >= SD_SHARDED_PSNR_DB
+                          and all(r[name]["finite"] for r in ranks))
+        row["cases"][name] = case
+        ok = ok and case["ok"]
+    row["weights_equal"] = all(r.get("param_checksum") == checksum for r in ranks)
+    refused = subprocess.run([sys.executable, os.path.join(here, "scripts", "run_torch_sd.py"),
+                              "--tp", "2"], cwd=here, capture_output=True, text=True,
+                             timeout=300)
+    row["one_card_tp2"] = {"rc": refused.returncode,
+                           "stderr_tail": refused.stderr.strip().splitlines()[-1:]}
+    row["ok"] = bool(ok and row["weights_equal"] and refused.returncode != 0
+                     and "needs 2 devices, have 1" in refused.stderr)
+    return row
+
+
+# each study script's rows at its defaults: the phase fails where one is missing
+STUDY_ROWS = {"bench_torch_scatter_variants": 13, "bench_torch_step_ablation": 7,
+              "bench_torch_eval_ablation": 6, "bench_torch_encode_split": 3,
+              "bench_torch_table_dtype": 8, "bench_torch_gather_by_table": 7,
+              "bench_torch_unet_layout": 16, "bench_torch_grid_refresh": 4}
+SCATTER_VARIANT_TOL = 1e-5       # of max |index_add_|
+
+
+def scripts_phase(here, dev, smi):
+    """The eight study scripts in this process at their defaults (each
+    ``run``), the scatter kernel's launch count set to 0 just before each
+    and read just after; then the SDXL key manifests against the committed
+    fixtures, byte for byte."""
+    import shutil
+
+    import torch
+
+    from stable_nerf_tpu_torch.ops.hopper.scatter import hash_scatter_add_per_level
+
+    row = {"phase": "scripts", "nvidia_smi": smi, "rows": {}, "scatter_launches": {},
+           "seconds_by_script": {}, "tolerance": {"scatter_rel_err": SCATTER_VARIANT_TOL}}
+    ok = True
+    for name in STUDY_ROWS:
+        mod = load_script(name)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        hash_scatter_add_per_level.launches = 0
+        if name == "bench_torch_scatter_variants":
+            rows = mod.run(mod.build_parser().parse_args([]), dev)
+        else:
+            rows = mod.run(dev)
+        row["scatter_launches"][name] = hash_scatter_add_per_level.launches
+        row["seconds_by_script"][name] = time.perf_counter() - t
+        row["rows"][name] = rows
+        ok = ok and len(rows) == STUDY_ROWS[name] and all(
+            isinstance(v, (int, float)) and math.isfinite(v) for v in rows.values())
+    sv = row["rows"]["bench_torch_scatter_variants"]
+    errs = {k: v for k, v in sv.items() if k.endswith("_max_rel_err")}
+    row["scatter_kernel_rows_ok"] = len(errs) == 4 and all(
+        v <= SCATTER_VARIANT_TOL for v in errs.values())
+    out = os.path.join(here, ".cache", "chip_smoke_key_manifest")
+    shutil.rmtree(out, ignore_errors=True)
+    manifest = load_script("make_torch_sdxl_key_manifest")
+    manifest.write(out)
+    same = {}
+    for name in manifest.NAMES:
+        with open(os.path.join(out, name), "rb") as a, \
+                open(os.path.join(here, "tests", "fixtures", name), "rb") as b:
+            same[name] = a.read() == b.read()
+    shutil.rmtree(out, ignore_errors=True)
+    row["key_manifests_equal_fixtures"] = same
+    row["ok"] = bool(ok and row["scatter_kernel_rows_ok"] and all(same.values())
+                     and row["scatter_launches"]["bench_torch_scatter_variants"] > 0
+                     and row["scatter_launches"]["bench_torch_step_ablation"] > 0)
+    return row
 
 
 def scatter_bench(dev, cfg, smi) -> int:
@@ -2707,6 +2936,7 @@ def main() -> int:
     cfg = flagship_config()
     if args.scatter_bench:
         return scatter_bench(dev, cfg, smi)
+    t_start = time.perf_counter()
     t = time.perf_counter()
     setup = make_setup(cfg, dev, SEED)
     torch.cuda.synchronize()
@@ -2714,78 +2944,90 @@ def main() -> int:
           "param_bytes": sum(x.numel() * x.element_size()
                              for x in tree_leaves(setup[0]))})
 
+    t = time.perf_counter()
     x_main = main_path_positions(cfg, setup[4], dev,
                                  torch.Generator(device=dev).manual_seed(SEED + 5))
     cases, breakdowns = kernel_cases(dev, x_main)
-    emit({"phase": "kernel_cases", "cases": cases, "e_per_level": breakdowns})
+    emit({"phase": "kernel_cases", "seconds": time.perf_counter() - t, "cases": cases,
+          "e_per_level": breakdowns})
     del x_main
+    t = time.perf_counter()
     floor = load_floor_script()
     gathers = gather_cases(dev, floor)
-    emit({"phase": "gather_cases", "cases": gathers})
-    phases = [encode_floor(dev, floor), parity_small(dev), serve_parity(dev)]
+    emit({"phase": "gather_cases", "seconds": time.perf_counter() - t, "cases": gathers})
+    phases = [with_seconds(encode_floor, dev, floor), with_seconds(parity_small, dev),
+              with_seconds(serve_parity, dev)]
     for row in phases:
         emit(row)
     floor_row = phases[0]
-    joint, state, opt = joint_full(dev, cfg, setup, JOINT_STEPS)
+    joint, state, opt = with_seconds(joint_full, dev, cfg, setup, JOINT_STEPS)
     emit(joint)
-    phases += [joint, joint_budget(dev, cfg, setup, opt, BUDGET_STEPS)]
+    phases += [joint, with_seconds(joint_budget, dev, cfg, setup, opt, BUDGET_STEPS)]
     emit(phases[-1])
-    served, serve_state = serve(dev, cfg, setup)
+    served, serve_state = with_seconds(serve, dev, cfg, setup)
     emit(served)
     phases.append(served)
     if args.profile:
-        emit(profile_step(state, args.profile, "joint_step"))
-        emit(profile_step(serve_state, args.profile, "serve_request"))
+        emit(with_seconds(profile_step, state, args.profile, "joint_step"))
+        emit(with_seconds(profile_step, serve_state, args.profile, "serve_request"))
     del setup, state, serve_state, opt
     torch.cuda.empty_cache()
     here = os.path.dirname(os.path.abspath(__file__))
-    looped = train_loop(dev, cfg, here)
+    looped = with_seconds(train_loop, dev, cfg, here)
     emit(looped)
     phases.append(looped)
     ckpt_dir = os.path.join(here, "chiprun_out", "sdxl_checkpoint")
     try:
-        phases.append(pretrained(dev, cfg, ckpt_dir))
+        phases.append(with_seconds(pretrained, dev, cfg, ckpt_dir))
         emit(phases[-1])
-        phases.append(cli(here, ckpt_dir))
+        phases.append(with_seconds(cli, here, ckpt_dir))
         emit(phases[-1])
         cli_row = phases[-1]
-        phases.append(sd_scripts(here, ckpt_dir))
+        phases.append(with_seconds(sd_scripts, here, ckpt_dir))
         emit(phases[-1])
     finally:
         # ~6.9 GB: never left behind
         import shutil
 
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    fitted, trained_case = fit_nerf(here, dev)
+    fitted, trained_case = with_seconds(fit_nerf, here, dev)
     emit(fitted)
     cases.append(trained_case)
-    demoed = demo(here, dev)
+    demoed = with_seconds(demo, here, dev)
     emit(demoed)
     phases += [fitted, demoed]
-    benched = bench(here)
+    benched = with_seconds(bench, here)
     emit(benched)
-    profiled = profile_sd(here)
+    profiled = with_seconds(profile_sd, here)
     emit(profiled)
     phases += [benched, profiled]
     # training across processes: remat, DP at world 1 on NCCL, two ranks on
     # the card over gloo (DP and FSDP), the CLI's parallel flags
-    rematted = remat_phase(dev, cfg, joint)
+    rematted = with_seconds(remat_phase, dev, cfg, joint)
     emit(rematted)
-    dp1 = dp_world1(dev, cfg, joint)
+    dp1 = with_seconds(dp_world1, dev, cfg, joint)
     emit(dp1)
-    dp_row, fsdp_row = two_ranks(here, dev, cfg, dp1)
+    dp_row, fsdp_row = with_seconds(two_ranks, here, dev, cfg, dp1)
     emit(dp_row)
     emit(fsdp_row)
-    cli_dp_row = cli_dp(here)
+    cli_dp_row = with_seconds(cli_dp, here)
     emit(cli_dp_row)
     phases += [rematted, dp1, dp_row, fsdp_row, cli_dp_row]
     # model-axis parallelism: TP and SP serving, TP training, FSDP x TP
-    tp_serve_row, sp_serve_row, tp_row, fsdp_tp_row = model_axis(here, dev, cfg, served,
-                                                                  dp_row)
+    tp_serve_row, sp_serve_row, tp_row, fsdp_tp_row = with_seconds(
+        model_axis, here, dev, cfg, served, dp_row)
     for row in (tp_serve_row, sp_serve_row, tp_row, fsdp_tp_row):
         emit(row)
     phases += [tp_serve_row, sp_serve_row, tp_row, fsdp_tp_row]
+    # the scripts: run_torch_sd sharded, the study scripts, the key manifests
+    sharded_sd = with_seconds(run_sd_sharded, here, dev)
+    emit(sharded_sd)
+    studied = with_seconds(scripts_phase, here, dev, smi)
+    emit(studied)
+    phases += [sharded_sd, studied]
     per_rank = lambda row: [r.get("scatter_launches") for r in row.get("per_rank", [])]  # noqa: E731
+    emit({"phase": "run_time", "seconds": time.perf_counter() - t_start,
+          "seconds_by_phase": {row["phase"]: row.get("seconds") for row in phases}})
 
     a, ga = cases[0], gathers[0]
     emit({"kernels": [{
@@ -2810,7 +3052,11 @@ def main() -> int:
                              "tp_train_per_rank": per_rank(tp_row),
                              "fsdp_tp_train_per_rank": [
                                  r.get("tiny_scatter_launches")
-                                 for r in fsdp_tp_row.get("per_rank", [])]},
+                                 for r in fsdp_tp_row.get("per_rank", [])],
+                             "scatter_variants":
+                                 studied["scatter_launches"]["bench_torch_scatter_variants"],
+                             "step_ablation":
+                                 studied["scatter_launches"]["bench_torch_step_ablation"]},
         "max_abs_err": a["kernel_vs_plain_max_abs"],
         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"], "library_ms": a["library_ms"],

@@ -16,13 +16,28 @@ with random weights from seed 0 (``--tiny``: the tiny configs); with a
 checkpoint directory in the HF hub layout the U-Net and VAE are its
 weights.  ``--image`` (a PNG) decodes through the native loader and is
 resized with the antialiased bilinear filter of data/preprocess.py (the
-card's machine has no PIL).  ``--sp`` / ``--tp`` > 1 are refused:
-sequence- and tensor-parallel serving is not ported (ROADMAP.md §1,
-``parallel/``).  ``--device`` (default cuda) is the one flag the JAX
-script lacks.
+card's machine has no PIL).
+
+``--sp S`` / ``--tp T`` > 1 serve the denoise sequence- and
+tensor-parallel, as run_sd.py does under ``shard_map``: one process a
+rank, on a (data × seq × model) mesh of ``parallel/sharding.py::
+make_mesh_3d``; the U-Net's attention heads and GEGLU width cut over the
+model axis (``parallel/tp.py::shard_unet_for_tp``), its latent tokens
+over the seq axis (ring attention); the VAE round trip and the
+conditioning path replicated.  Every rank draws the same latents (the
+generator is not folded with the rank); rank 0 prints and writes.
+Without ``--coordinator`` the script starts S·T processes of itself, one
+a card (``train.launch_local``), and refuses to run with fewer cards than
+that, as run_sd.py refuses with fewer devices; with ``--coordinator
+HOST:PORT --num-processes N --process-id I`` it is one rank of a world
+started by hand (N a multiple of S·T; the data axis replicates).  On the
+CPU (``--device cpu``) the ranks are started by hand or by a launcher,
+over gloo.  ``--device`` (default cuda) and the three rank flags are the
+flags the JAX script lacks.
 
 Usage: python scripts/run_torch_sd.py [--tiny] [--size 512] [--steps 50]
        [--sdxl-checkpoint DIR] [--image PNG] [--out debug_out_sd]
+       [--sp S] [--tp T] [--coordinator HOST:PORT --num-processes N --process-id I]
 """
 
 from __future__ import annotations
@@ -55,11 +70,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sdxl-checkpoint", default=None)
     ap.add_argument("--tiny", action="store_true", help="tiny configs")
     ap.add_argument("--sp", type=int, default=1,
-                    help="sequence-parallel axis size; only 1 is ported")
+                    help="sequence-parallel axis size for the denoise (ring attention "
+                         "over latent tokens; needs sp*tp processes)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel axis size; only 1 is ported")
+                    help="tensor-parallel axis size for the denoise (attention-head/"
+                         "GEGLU sharding)")
     ap.add_argument("--out", default="debug_out_sd")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--coordinator", default=None,
+                    help="HOST:PORT of rank 0's store: run as one rank of a world started "
+                         "by hand (with --num-processes and --process-id)")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     return ap
 
 
@@ -104,27 +126,110 @@ def vae_round_trip(params, x, cfg: SDNetworkConfig, eps=None, generator=None):
     return lat, recon, stats
 
 
+def _axes(mesh):
+    """(tp_axis, sp_axis) of a (data × seq × model) mesh, None where an
+    axis has size 1 (or without a mesh)."""
+    if mesh is None:
+        return None, None
+    return (mesh.axes["model"] if mesh.shape["model"] > 1 else None,
+            mesh.axes["seq"] if mesh.shape["seq"] > 1 else None)
+
+
+def shard_params(params, mesh):
+    """This rank's serving params: with a model axis the U-Net's GEGLU
+    kernels permuted and its attention and GEGLU leaves cut to this rank's
+    slices (``parallel/tp.py::shard_unet_for_tp``, the cut of
+    ``serving_param_specs``' specs); every other leaf whole."""
+    from stable_nerf_tpu_torch.parallel.tp import shard_unet_for_tp
+
+    tp_axis, _ = _axes(mesh)
+    if tp_axis is None:
+        return params
+    return {**params, "unet": shard_unet_for_tp(params["unet"], tp_axis)}
+
+
 def denoise(params, latents, cond, cfg: SDNetworkConfig, scheduler: DDIMScheduler,
-            n_steps: int, compute_dtype=torch.bfloat16) -> torch.Tensor:
+            n_steps: int, compute_dtype=torch.bfloat16, mesh=None) -> torch.Tensor:
     """The DDIM loop of run_sd.py: ``n_steps`` eta-0 steps from
     ``latents``, each an ``sd_forward`` on the image conditioning
-    ``cond`` [2B, cond_channels, h, w] in ``compute_dtype``."""
+    ``cond`` [2B, cond_channels, h, w] in ``compute_dtype``.  With a
+    (data × seq × model) ``mesh`` the U-Net runs tensor-parallel over its
+    model axis and sequence-parallel over its seq axis on ``params`` cut
+    by :func:`shard_params`; every rank passes the same latents and gets
+    the same result."""
+    tp_axis, sp_axis = _axes(mesh)
     ts = torch.as_tensor(scheduler.timesteps(n_steps), device=latents.device)
     x = latents
     with torch.no_grad():
         for t in ts:
-            eps = sd_forward(params, x, t, cond, cfg, compute_dtype=compute_dtype)
+            eps = sd_forward(params, x, t, cond, cfg, compute_dtype=compute_dtype,
+                             tp_axis=tp_axis, sp_axis=sp_axis)
             x, _ = scheduler.step(eps, t, x, num_inference_steps=n_steps)
     return x
 
 
+def launch_ranks(args, argv) -> int:
+    """sp·tp processes of this script, one a card, each given the rank
+    flags; refused (exit 1) with fewer cards than that.  Returns the first
+    non-zero exit code of a rank, else 0."""
+    from stable_nerf_tpu_torch.train import launch_local
+
+    need = args.sp * args.tp
+    dev = resolve_device(args.device)
+    have = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if have < need:
+        print(f"--sp {args.sp} --tp {args.tp} needs {need} devices, have {have}",
+              file=sys.stderr)
+        return 1
+    argv = list(argv if argv is not None else sys.argv[1:])
+    return launch_local(argv, need, command=[sys.executable, os.path.abspath(__file__)])
+
+
+def join_mesh(args):
+    """This rank's (data × seq × model) mesh of the world ``--coordinator``
+    names, on its card (NCCL) or the CPU (gloo); None without
+    ``--coordinator``."""
+    from stable_nerf_tpu_torch.parallel.sharding import make_mesh_3d
+
+    if args.coordinator is None:
+        return None
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", args.process_id % torch.cuda.device_count())
+    return make_mesh_3d(device, sp=args.sp, tp=args.tp,
+                        init_method=f"tcp://{args.coordinator}", rank=args.process_id,
+                        world_size=args.num_processes)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.sp > 1 or args.tp > 1:
-        print(f"--sp {args.sp} --tp {args.tp}: sequence- and tensor-parallel serving is "
-              "not ported yet (ROADMAP.md §1 queue: parallel/)", file=sys.stderr)
-        return 2
-    dev = resolve_device(args.device)
+    need = args.sp * args.tp
+    if args.coordinator is not None:
+        if args.num_processes is None or args.process_id is None:
+            print("--coordinator requires --num-processes and --process-id", file=sys.stderr)
+            return 2
+        if args.num_processes < need or args.num_processes % need:
+            print(f"--sp {args.sp} --tp {args.tp} needs {need} processes (or a multiple), "
+                  f"have {args.num_processes}", file=sys.stderr)
+            return 1
+    elif need > 1:
+        return launch_ranks(args, argv)
+    mesh = join_mesh(args)
+    try:
+        return run(args, mesh)
+    finally:
+        if mesh is not None:
+            from stable_nerf_tpu_torch.parallel.sharding import close_mesh
+
+            close_mesh()
+
+
+def run(args, mesh) -> int:
+    """The VAE round trip and the denoise on this process (one rank of
+    ``mesh`` where it is given; rank 0 prints and writes)."""
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **kw: None)
     disable_tf32()
     cfg = network_config(args.tiny, args.size)
     size = cfg.sd.image_size
@@ -149,16 +254,18 @@ def main(argv=None) -> int:
         x = load_image(args.image, size).to(dev)
     else:
         x = torch.rand((1, 3, size, size), generator=g, device=dev) * 2 - 1
-    os.makedirs(args.out, exist_ok=True)
+    if lead:
+        os.makedirs(args.out, exist_ok=True)
 
-    # 1. VAE round trip (reference test_sd.py:23-101)
+    # 1. VAE round trip (reference test_sd.py:23-101), on every rank
     lat, recon, stats = vae_round_trip(params, x, cfg, generator=g)
-    print(f"latents: shape {tuple(lat.shape)} mean {stats['latent_mean']:.4f} "
-          f"std {stats['latent_std']:.4f} min {stats['latent_min']:.3f} "
-          f"max {stats['latent_max']:.3f}")
-    print(f"VAE reconstruction MSE: {stats['recon_mse']:.5f}")
-    save_image(os.path.join(args.out, "vae_recon.png"),
-               torch.clamp((recon[0] + 1) / 2, 0, 1), chw=True)
+    say(f"latents: shape {tuple(lat.shape)} mean {stats['latent_mean']:.4f} "
+        f"std {stats['latent_std']:.4f} min {stats['latent_min']:.3f} "
+        f"max {stats['latent_max']:.3f}")
+    say(f"VAE reconstruction MSE: {stats['recon_mse']:.5f}")
+    if lead:
+        save_image(os.path.join(args.out, "vae_recon.png"),
+                   torch.clamp((recon[0] + 1) / 2, 0, 1), chw=True)
 
     # 2. a full DDIM denoise with zero image conditioning (reference
     #    test_sd.py:104-168; the tokens come from zeroed ip-condition
@@ -166,24 +273,29 @@ def main(argv=None) -> int:
     enc = cfg.sd.latent_size
     cond = torch.zeros((2, cfg.sd.cond_channels, enc, enc), device=dev)
     latents = torch.randn(lat.shape, generator=g, device=dev)
+    local = shard_params(params, mesh)
+    if mesh is not None:
+        say(f"denoising sharded: seq={args.sp} model={args.tp} over {mesh.world} "
+            f"processes ({mesh.backend})")
     sync()
     t0 = time.perf_counter()
-    latents = denoise(params, latents, cond, cfg, scheduler, args.steps)
+    latents = denoise(local, latents, cond, cfg, scheduler, args.steps, mesh=mesh)
     sync()
     dt = time.perf_counter() - t0
-    print(f"{args.steps}-step DDIM denoise: {dt:.1f}s "
-          f"({args.steps / dt:.2f} steps/s incl. the first call's set-up)")
+    say(f"{args.steps}-step DDIM denoise: {dt:.1f}s "
+        f"({args.steps / dt:.2f} steps/s incl. the first call's set-up)")
     t0 = time.perf_counter()
-    denoise(params, latents, cond, cfg, scheduler, args.steps)
+    denoise(local, latents, cond, cfg, scheduler, args.steps, mesh=mesh)
     sync()
     dt = time.perf_counter() - t0
-    print(f"steady-state: {args.steps / dt:.2f} denoise steps/s")
+    say(f"steady-state: {args.steps / dt:.2f} denoise steps/s")
 
-    with torch.no_grad():
-        img = decode_latents(params, latents.float(), cfg)
-    save_image(os.path.join(args.out, "denoised.png"),
-               torch.clamp((img[0] + 1) / 2, 0, 1), chw=True)
-    print(f"outputs written to {args.out}/")
+    if lead:
+        with torch.no_grad():
+            img = decode_latents(params, latents.float(), cfg)
+        save_image(os.path.join(args.out, "denoised.png"),
+                   torch.clamp((img[0] + 1) / 2, 0, 1), chw=True)
+    say(f"outputs written to {args.out}/")
     return 0
 
 

@@ -1,5 +1,5 @@
 """One rank of the port's multi-process tests (tests/test_torch_parallel.py,
-tests/test_torch_tp.py, tests/test_torch_sp.py).
+tests/test_torch_tp.py, tests/test_torch_sp.py, tests/test_torch_run_sd_sharded.py).
 
 Not a pytest module.  Started by ``stable_nerf_tpu_torch.train.launch_local``,
 which appends ``--coordinator HOST:PORT --num-processes N --process-id I``.
@@ -15,7 +15,8 @@ Imports torch and the port only, never JAX.
       params and the grid it returns to OUTDIR/cli_<rank>.pt.
   python tests/mp_torch_worker.py cases INPUTS OUTDIR <coordinator flags>
       the tensor- and sequence-parallel cases of INPUTS["cases"]
-      (tests/test_torch_tp.py, tests/test_torch_sp.py), each on a mesh of
+      (tests/test_torch_tp.py, tests/test_torch_sp.py,
+      tests/test_torch_run_sd_sharded.py), each on a mesh of
       its own sizes over this world; writes OUTDIR/cases_<rank>.pt.
 """
 
@@ -256,7 +257,25 @@ def case_train(case, mesh):
     return rec
 
 
-CASES = {"unet": case_unet, "ring": case_ring, "infer": case_infer, "train": case_train}
+def case_run_sd(case, mesh):
+    """scripts/run_torch_sd.py's sharded denoise on the case's whole params
+    (cut here by its ``shard_params``), start latents and conditioning, in
+    float32."""
+    import torch
+
+    from chip_smoke import load_script
+    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+
+    run_sd = load_script("run_torch_sd")
+    cfg = case["cfg"]
+    local = run_sd.shard_params(case["params"], mesh)
+    return run_sd.denoise(local, case["latents"], case["cond"], cfg,
+                          DDIMScheduler.create(cfg.scheduler, device="cpu"), case["steps"],
+                          compute_dtype=torch.float32, mesh=mesh)
+
+
+CASES = {"unet": case_unet, "ring": case_ring, "infer": case_infer, "train": case_train,
+         "run_sd": case_run_sd}
 
 
 def cases(inputs):

@@ -26,7 +26,12 @@ import bench_torch
 for script in ("fit_torch_nerf", "pretrain_torch_tiny_vae", "fit_torch_latent_ceiling",
                "bench_torch_joint_full_sdxl", "profile_torch_sd_denoise", "run_torch_sd",
                "validate_torch_sdxl_checkpoint", "bench_torch_batch_sweep",
-               "bench_torch_hybrid_sweep"):
+               "bench_torch_hybrid_sweep", "bench_torch_scatter_variants",
+               "bench_torch_step_ablation", "bench_torch_eval_ablation",
+               "bench_torch_encode_split", "bench_torch_table_dtype",
+               "bench_torch_gather_by_table", "bench_torch_unet_layout",
+               "bench_torch_grid_refresh", "make_torch_sdxl_key_manifest",
+               "make_torch_synthetic_scene", "weights_torch_drill_full_size"):
     chip_smoke.load_script(script)
 # the JAX package's root scripts and pre-port scripts/ files
 pre_port = {"bench", "train", "__graft_entry__"} | {
@@ -65,6 +70,12 @@ def test_port_imports_neither_jax_nor_reference_package():
                 "parallel", "parallel.sharding", "parallel.fsdp", "parallel.tp",
                 "parallel.sp"):
         assert f"stable_nerf_tpu_torch.{mod}" in names.split(), mod
+
+
+STUDY_SCRIPTS = ("bench_torch_scatter_variants", "bench_torch_step_ablation",
+                 "bench_torch_eval_ablation", "bench_torch_encode_split",
+                 "bench_torch_table_dtype", "bench_torch_gather_by_table",
+                 "bench_torch_unet_layout", "bench_torch_grid_refresh")
 
 
 def _entry_points():
@@ -135,6 +146,10 @@ def _entry_points():
             JointConfig(), None, mesh=make_mesh_2d()),
         "cli_tensor_parallel": lambda: cli.main(["--tiny", "--dataset", "synthetic",
                                                  "--tensor-parallel", "2"]),
+        "run_sd_sharded_script": lambda: chip_smoke.load_script("run_torch_sd").main(
+            ["--tiny", "--tp", "2"]),
+        **{f"{name}_script": (lambda name=name: chip_smoke.load_script(name).main([]))
+           for name in STUDY_SCRIPTS},
     }
 
 
@@ -149,7 +164,9 @@ def _entry_points():
                                   "run_sd_script", "validate_script", "make_mesh",
                                   "train_data_parallel", "cli_data_parallel",
                                   "cli_coordinator", "make_mesh_2d",
-                                  "make_sharded_inference_step", "cli_tensor_parallel"])
+                                  "make_sharded_inference_step", "cli_tensor_parallel",
+                                  "run_sd_sharded_script",
+                                  *(f"{name}_script" for name in STUDY_SCRIPTS)])
 def test_entry_points_default_to_cuda_and_refuse_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")

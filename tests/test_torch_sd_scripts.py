@@ -18,8 +18,9 @@ the CPU, against the JAX package at the tiny size.
   bytes in JAX's leaf order.
 * The validator's control flow on tiny trees (every check run and
   reported, random weights failing only the reconstruction check), and
-  run_torch_sd's: outputs written, ``--sp``/``--tp`` refused, ``--image``
-  decoded natively.
+  run_torch_sd's: outputs written, ``--sp``/``--tp`` refused with one
+  device (tests/test_torch_run_sd_sharded.py runs them on several
+  processes), ``--image`` decoded natively.
 """
 
 import importlib.util
@@ -226,9 +227,11 @@ def test_run_sd_tiny_on_the_cpu_and_its_refusals(run_sd, tmp_path, capsys):
     assert "VAE reconstruction MSE" in text and "steady-state" in text
     names = sorted(os.listdir(out))
     assert [n.split(".png")[0] for n in names] == ["denoised", "vae_recon"]
+    # one CPU process is one device: two ranks are refused before any group
+    # is made (tests/test_torch_run_sd_sharded.py runs them)
     for flag in ("--sp", "--tp"):
-        assert run_sd.main([flag, "2", "--device", "cpu"]) == 2
-        assert "parallel/" in capsys.readouterr().err
+        assert run_sd.main([flag, "2", "--device", "cpu"]) == 1
+        assert "needs 2 devices, have 1" in capsys.readouterr().err
 
 
 def test_run_sd_image_decodes_natively_and_resizes_bilinear(run_sd, tmp_path):
