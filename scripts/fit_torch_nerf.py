@@ -46,6 +46,7 @@ from stable_nerf_tpu_torch.ops.compaction import suggest_sample_budget  # noqa: 
 from stable_nerf_tpu_torch.training.joint import lr_factor  # noqa: E402
 from stable_nerf_tpu_torch.utils.device import disable_tf32, resolve_device  # noqa: E402
 from stable_nerf_tpu_torch.utils.losses import psnr  # noqa: E402
+from stable_nerf_tpu_torch.utils.profiling import span  # noqa: E402
 from stable_nerf_tpu_torch.utils.tree import tree_leaves  # noqa: E402
 from stable_nerf_tpu_torch.utils.visualization import save_image  # noqa: E402
 
@@ -160,18 +161,23 @@ def train_step(params: Dict, opt, sched, state, pool: Dict, cfg: NeRFConfig,
     """One Adam step on the rays ``idx`` of the pool (``pool_o``,
     ``pool_d``, ``pool_gt``), t0 jittered by ``perturb`` [rays] in [0, 1),
     the MLPs computing in ``compute_dtype`` (bf16, as the JAX script
-    trains); returns the ``loss`` ("mse" or "l1"), not synchronised."""
-    o, d, gt = pool["pool_o"][idx], pool["pool_d"][idx], pool["pool_gt"][idx]
-    out = render(params, state, o[None], d[None], cfg, bg_color=bg, max_steps=max_steps,
-                 perturb=perturb, compute_dtype=compute_dtype, sample_budget=budget)
-    err = out["image"][0] - gt
-    value = (err ** 2).mean() if loss == "mse" else err.abs().mean()
-    opt.zero_grad(set_to_none=True)
-    value.backward()
-    opt.step()
-    if sched is not None:
-        sched.step()
-    return value.detach()
+    trains); returns the ``loss`` ("mse" or "l1"), not synchronised.  Spans
+    (``utils/profiling.py``): ``fit.step``, and in it ``fit.backward`` and
+    ``fit.optimizer``."""
+    with span("fit.step"):
+        o, d, gt = pool["pool_o"][idx], pool["pool_d"][idx], pool["pool_gt"][idx]
+        out = render(params, state, o[None], d[None], cfg, bg_color=bg, max_steps=max_steps,
+                     perturb=perturb, compute_dtype=compute_dtype, sample_budget=budget)
+        err = out["image"][0] - gt
+        value = (err ** 2).mean() if loss == "mse" else err.abs().mean()
+        opt.zero_grad(set_to_none=True)
+        with span("fit.backward"):
+            value.backward()
+        with span("fit.optimizer"):
+            opt.step()
+            if sched is not None:
+                sched.step()
+        return value.detach()
 
 
 @torch.no_grad()

@@ -18,6 +18,7 @@ import torch
 
 from ...config import NeRFConfig
 from ...utils.device import resolve_device
+from ...utils.profiling import span
 
 
 class OccupancyGridState(NamedTuple):
@@ -100,7 +101,8 @@ def update_extra_state(state: OccupancyGridState,
                        cfg: NeRFConfig, *, generator: Optional[torch.Generator] = None,
                        draws: Optional[Dict[str, Sequence[torch.Tensor]]] = None,
                        decay: float = 0.95, chunk: int = 2 ** 16) -> OccupancyGridState:
-    """Epoch-cadence density-grid refresh (reference renderer.py:236-327).
+    """Epoch-cadence density-grid refresh (reference renderer.py:236-327),
+    the span ``grid.refresh`` (``utils/profiling.py``).
 
     The first 16 refreshes sweep every cell of every cascade; later ones a
     quarter of the cells at random plus as many draws among the occupied
@@ -117,58 +119,59 @@ def update_extra_state(state: OccupancyGridState,
       (used while a cascade has no occupied cell).  Any that is missing is
       drawn from ``generator``.
     """
-    draws = draws or {}
-    H, C = cfg.grid_size, cfg.cascade
-    H3 = H ** 3
-    dev = state.density_grid.device
-    coords_all = _cell_coords(H, dev)
+    with span("grid.refresh"):
+        draws = draws or {}
+        H, C = cfg.grid_size, cfg.cascade
+        H3 = H ** 3
+        dev = state.density_grid.device
+        coords_all = _cell_coords(H, dev)
 
-    def draw(name, cas, make):
-        if name in draws:
-            return torch.as_tensor(draws[name][cas], device=dev)
-        if generator is None:
-            raise ValueError(f"draw {name!r} was not given and no generator was")
-        return make()
+        def draw(name, cas, make):
+            if name in draws:
+                return torch.as_tensor(draws[name][cas], device=dev)
+            if generator is None:
+                raise ValueError(f"draw {name!r} was not given and no generator was")
+            return make()
 
-    def sweep_cascade(cas: int, cell_idx: Optional[torch.Tensor]) -> torch.Tensor:
-        """Density at jittered cell centres of one cascade."""
-        bound, hgs = _cascade_bounds(cfg, cas)
-        coords = coords_all if cell_idx is None else coords_all[cell_idx]
-        xyzs = (2.0 * coords.float() / (H - 1) - 1.0) * (bound - hgs)
-        noise = draw("noise", cas, lambda: torch.rand(
-            xyzs.shape, generator=generator, device=dev) * 2.0 - 1.0)
-        xyzs = xyzs + noise * hgs
-        return torch.cat([density_fn(x).float() for x in xyzs.split(chunk)])
+        def sweep_cascade(cas: int, cell_idx: Optional[torch.Tensor]) -> torch.Tensor:
+            """Density at jittered cell centres of one cascade."""
+            bound, hgs = _cascade_bounds(cfg, cas)
+            coords = coords_all if cell_idx is None else coords_all[cell_idx]
+            xyzs = (2.0 * coords.float() / (H - 1) - 1.0) * (bound - hgs)
+            noise = draw("noise", cas, lambda: torch.rand(
+                xyzs.shape, generator=generator, device=dev) * 2.0 - 1.0)
+            xyzs = xyzs + noise * hgs
+            return torch.cat([density_fn(x).float() for x in xyzs.split(chunk)])
 
-    tmp = torch.full((C, H3), -1.0, dtype=torch.float32, device=dev)
-    if int(state.iter_density) < 16:
-        for cas in range(C):
-            tmp[cas] = sweep_cascade(cas, None)
-    else:
-        N = H3 // 4
-        for cas in range(C):
-            rand_idx = draw("rand_idx", cas, lambda: torch.randint(
-                0, H3, (N,), generator=generator, device=dev))
-            # uniform with replacement over the occupied cells by inverse
-            # CDF; floor(u·total) in float32, as JAX computes it
-            cnt = torch.cumsum((state.density_grid[cas] > 0).to(torch.int64), 0)
-            total = cnt[-1]
-            u = draw("u", cas, lambda: torch.rand(N, generator=generator, device=dev))
-            r = torch.floor(u.float() * total.float()).to(torch.int64)
-            occ_idx = torch.searchsorted(cnt, r, right=True).clamp(max=H3 - 1)
-            # no occupied cell yet: uniform over all cells
-            fallback = draw("fallback_idx", cas, lambda: torch.randint(
-                0, H3, (N,), generator=generator, device=dev))
-            occ_idx = torch.where(total > 0, occ_idx, fallback.to(torch.int64))
-            idx = torch.cat([rand_idx.to(torch.int64), occ_idx])
-            tmp[cas, idx] = sweep_cascade(cas, idx)
+        tmp = torch.full((C, H3), -1.0, dtype=torch.float32, device=dev)
+        if int(state.iter_density) < 16:
+            for cas in range(C):
+                tmp[cas] = sweep_cascade(cas, None)
+        else:
+            N = H3 // 4
+            for cas in range(C):
+                rand_idx = draw("rand_idx", cas, lambda: torch.randint(
+                    0, H3, (N,), generator=generator, device=dev))
+                # uniform with replacement over the occupied cells by inverse
+                # CDF; floor(u·total) in float32, as JAX computes it
+                cnt = torch.cumsum((state.density_grid[cas] > 0).to(torch.int64), 0)
+                total = cnt[-1]
+                u = draw("u", cas, lambda: torch.rand(N, generator=generator, device=dev))
+                r = torch.floor(u.float() * total.float()).to(torch.int64)
+                occ_idx = torch.searchsorted(cnt, r, right=True).clamp(max=H3 - 1)
+                # no occupied cell yet: uniform over all cells
+                fallback = draw("fallback_idx", cas, lambda: torch.randint(
+                    0, H3, (N,), generator=generator, device=dev))
+                occ_idx = torch.where(total > 0, occ_idx, fallback.to(torch.int64))
+                idx = torch.cat([rand_idx.to(torch.int64), occ_idx])
+                tmp[cas, idx] = sweep_cascade(cas, idx)
 
-    # EMA max-decay on cells valid in both grids (renderer.py:310-312)
-    valid = (state.density_grid >= 0) & (tmp >= 0)
-    grid = torch.where(valid, torch.maximum(state.density_grid * decay, tmp),
-                       state.density_grid)
-    mean_density = grid.clamp(min=0).mean()
-    thresh = torch.clamp(mean_density, max=cfg.density_thresh)
-    occ = (grid > thresh).reshape(C, H, H, H)
-    return OccupancyGridState(density_grid=grid, occ=occ, mean_density=mean_density,
-                              iter_density=state.iter_density + 1)
+        # EMA max-decay on cells valid in both grids (renderer.py:310-312)
+        valid = (state.density_grid >= 0) & (tmp >= 0)
+        grid = torch.where(valid, torch.maximum(state.density_grid * decay, tmp),
+                           state.density_grid)
+        mean_density = grid.clamp(min=0).mean()
+        thresh = torch.clamp(mean_density, max=cfg.density_thresh)
+        occ = (grid > thresh).reshape(C, H, H, H)
+        return OccupancyGridState(density_grid=grid, occ=occ, mean_density=mean_density,
+                                  iter_density=state.iter_density + 1)

@@ -5,6 +5,12 @@ perturbation and, by default, a sample budget.
 
   * image = composited + (1 − weights_sum)·bg_color
   * depth = clamp(depth − near, 0) / (far − near), 0 for missed rays
+
+Spans (``utils/profiling.py``): ``nerf.march`` (bounds, march, the budget's
+compaction), ``nerf.mlp`` (the network over the samples) and
+``nerf.composite``; counters ``render.samples`` (samples the network
+evaluates: N·K dense, else the budget) and ``render.valid_samples`` (the
+valid ones among them, a device count, taken only while spans are on).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from ...ops.compaction import compact_plan, gather_compact, scatter_back
 from ...ops.composite import composite_rays
 from ...ops.marching import march_rays_lattice
 from ...ops.ray_ops import near_far_from_aabb
+from ...utils.profiling import count, span, spans_enabled
 from .grid import OccupancyGridState
 from .network import nerf_apply
 
@@ -61,40 +68,48 @@ def render(params: Dict, grid_state: OccupancyGridState, rays_o, rays_d,
     d = rays_d.reshape(-1, 3).float()
     N = o.shape[0]
     b = cfg.bound
-    aabb = torch.tensor([-b, -b, -b, b, b, b], dtype=torch.float32, device=o.device)
-    nears, fars = near_far_from_aabb(o, d, aabb, cfg.min_near)
-    pos, ts, dt, valid, t0 = march_rays_lattice(
-        o, d, nears, fars, grid_state.occ, bound=cfg.bound, cascade=cfg.cascade,
-        grid_size=cfg.grid_size, max_steps=max_steps, n_samples=n_samples,
-        noise=perturb)
-    K = ts.shape[1]
-    M = N * K
-    if sample_budget is not None and sample_budget < M:
-        plan = compact_plan(valid, sample_budget)
-        pos_c = gather_compact(plan, pos)
-        # directions are constant along a ray: gather [budget] rows of the
-        # [N, 3] ray directions (src // K is the ray)
-        ray_of = torch.div(plan.src_idx, K, rounding_mode="floor").clamp(max=N - 1)
-        dirs_c = d[ray_of.long()] * plan.slot_used[:, None].to(d.dtype)
-        sig, rgb = _eval_samples(params, pos_c, dirs_c, cfg, compute_dtype,
-                                 eval_chunk, stochastic)
-        sig = scatter_back(plan, sig, M)
-        rgb = scatter_back(plan, rgb, M)
-        valid = plan.new_valid
-    else:
-        dirs = d[:, None, :].expand(N, K, 3)
-        sig, rgb = _eval_samples(params, pos.reshape(M, 3), dirs.reshape(M, 3), cfg,
-                                 compute_dtype, eval_chunk, stochastic)
-    sigmas = sig.reshape(N, K) * cfg.density_scale
-    rgbs = rgb.reshape(N, K, cfg.channel_dim)
-    weights_sum, depth, image = composite_rays(sigmas, rgbs, dt, ts, t0, valid,
-                                               t_thresh)
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=o.device)
-    image = image + (1.0 - weights_sum)[:, None] * bg
-    span = fars - nears
-    depth = torch.where(span > 0,
-                        torch.clamp(depth - nears, min=0) / torch.clamp(span, min=1e-10),
-                        torch.zeros_like(depth))
+    with span("nerf.march"):
+        aabb = torch.tensor([-b, -b, -b, b, b, b], dtype=torch.float32, device=o.device)
+        nears, fars = near_far_from_aabb(o, d, aabb, cfg.min_near)
+        pos, ts, dt, valid, t0 = march_rays_lattice(
+            o, d, nears, fars, grid_state.occ, bound=cfg.bound, cascade=cfg.cascade,
+            grid_size=cfg.grid_size, max_steps=max_steps, n_samples=n_samples,
+            noise=perturb)
+        K = ts.shape[1]
+        M = N * K
+        budgeted = sample_budget is not None and sample_budget < M
+        if budgeted:
+            plan = compact_plan(valid, sample_budget)
+            pos_c = gather_compact(plan, pos)
+            # directions are constant along a ray: gather [budget] rows of the
+            # [N, 3] ray directions (src // K is the ray)
+            ray_of = torch.div(plan.src_idx, K, rounding_mode="floor").clamp(max=N - 1)
+            dirs_c = d[ray_of.long()] * plan.slot_used[:, None].to(d.dtype)
+            valid = plan.new_valid
+    with span("nerf.mlp"):
+        if budgeted:
+            sig, rgb = _eval_samples(params, pos_c, dirs_c, cfg, compute_dtype,
+                                     eval_chunk, stochastic)
+            sig = scatter_back(plan, sig, M)
+            rgb = scatter_back(plan, rgb, M)
+        else:
+            dirs = d[:, None, :].expand(N, K, 3)
+            sig, rgb = _eval_samples(params, pos.reshape(M, 3), dirs.reshape(M, 3), cfg,
+                                     compute_dtype, eval_chunk, stochastic)
+    if spans_enabled():
+        count("render.samples", sample_budget if budgeted else M)
+        count("render.valid_samples", valid.sum())
+    with span("nerf.composite"):
+        sigmas = sig.reshape(N, K) * cfg.density_scale
+        rgbs = rgb.reshape(N, K, cfg.channel_dim)
+        weights_sum, depth, image = composite_rays(sigmas, rgbs, dt, ts, t0, valid,
+                                                   t_thresh)
+        bg = torch.as_tensor(bg_color, dtype=torch.float32, device=o.device)
+        image = image + (1.0 - weights_sum)[:, None] * bg
+        extent = fars - nears
+        depth = torch.where(extent > 0,
+                            torch.clamp(depth - nears, min=0) / torch.clamp(extent, min=1e-10),
+                            torch.zeros_like(depth))
     return {
         "image": image.reshape(*prefix, cfg.channel_dim),
         "depth": depth.reshape(*prefix),

@@ -7,6 +7,8 @@ emulated in int64 and masked to 32 bits after every multiply, so row
 indices match the reference bit for bit.  The custom backward recomputes
 indices and weights from the saved positions and sends the table gradient
 to the scatter kernel (ops/hopper/scatter.py), one slab per level section.
+Spans (``utils/profiling.py``): ``nerf.hash_encode`` over the encode and
+``nerf.hash_encode_backward`` over the custom backward.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import math
 import torch
 
 from ..config import HashGridConfig
+from ..utils.profiling import span
 from .hopper.scatter import hash_scatter_add_per_level
 
 # tcnn spatial hash primes (grid.h)
@@ -175,21 +178,22 @@ class _HashEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        cfg, stochastic, grad_bf16, min_level = ctx.args
-        M = x.shape[0]
-        F = cfg.n_features_per_level
-        T = cfg.table_size
-        g = g.float().reshape(M, cfg.n_levels, 1, F)
-        slabs = []
-        for lv0, rows, cw in _hash_sections(x, cfg, stochastic, min_level):
-            Lp = rows.shape[1]
-            upd = (cw[..., None] * g[:, lv0:lv0 + Lp]).contiguous()
-            local = (rows - lv0 * T).to(torch.int32)
-            slabs.append(hash_scatter_add_per_level(local, upd, Lp, T,
-                                                    payload_bf16=grad_bf16))
-        table_grad = slabs[0] if len(slabs) == 1 else torch.cat(slabs)
-        x_grad = torch.zeros_like(x) if ctx.needs_input_grad[1] else None
+        with span("nerf.hash_encode_backward"):
+            (x,) = ctx.saved_tensors
+            cfg, stochastic, grad_bf16, min_level = ctx.args
+            M = x.shape[0]
+            F = cfg.n_features_per_level
+            T = cfg.table_size
+            g = g.float().reshape(M, cfg.n_levels, 1, F)
+            slabs = []
+            for lv0, rows, cw in _hash_sections(x, cfg, stochastic, min_level):
+                Lp = rows.shape[1]
+                upd = (cw[..., None] * g[:, lv0:lv0 + Lp]).contiguous()
+                local = (rows - lv0 * T).to(torch.int32)
+                slabs.append(hash_scatter_add_per_level(local, upd, Lp, T,
+                                                        payload_bf16=grad_bf16))
+            table_grad = slabs[0] if len(slabs) == 1 else torch.cat(slabs)
+            x_grad = torch.zeros_like(x) if ctx.needs_input_grad[1] else None
         return table_grad, x_grad, None, None, None, None
 
 
@@ -208,12 +212,13 @@ def hash_grid_encode(params: dict, x: torch.Tensor, cfg: HashGridConfig,
     batch_shape = x.shape[:-1]
     xf = x.reshape(-1, 3).float()
     table = params["table"]
-    if custom_bwd:
-        out = _HashEncode.apply(table, xf, cfg, stochastic, grad_bf16,
-                                stochastic_min_level)
-    else:
-        out = _encode_sections(table, _hash_sections(xf, cfg, stochastic,
-                                                     stochastic_min_level))
+    with span("nerf.hash_encode"):
+        if custom_bwd:
+            out = _HashEncode.apply(table, xf, cfg, stochastic, grad_bf16,
+                                    stochastic_min_level)
+        else:
+            out = _encode_sections(table, _hash_sections(xf, cfg, stochastic,
+                                                         stochastic_min_level))
     return out.reshape(*batch_shape, cfg.output_dim)
 
 

@@ -31,6 +31,7 @@ from ..models.nerf.grid import OccupancyGridState
 from ..models.nerf.renderer import render
 from ..utils.device import resolve_device
 from ..utils.losses import l2_loss, psnr, ssim
+from ..utils.profiling import span
 from .joint import JointConfig, check_batch_device, eval_sample_budget
 
 
@@ -54,7 +55,12 @@ def make_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
 
     stage_hook: called with a stage's name as it ends ("encode", "render",
       "denoise", "decode"), so a caller can synchronize and read a clock
-      there; None adds nothing to the step.
+      there; None adds nothing to the step.  The stages are also spans
+      (``utils/profiling.py``), timed on the host and the device clocks
+      without a synchronize: ``infer.request`` over the step, in it
+      ``infer.encode``, ``infer.render``, ``infer.denoise`` (one
+      ``infer.ddim_step`` a DDIM step) and ``infer.decode`` (the decode
+      and the image metrics); the hook runs after each stage's span closes.
     tp_axis / sp_axis: mesh axes every U-Net call (the unconditional pass
       under guidance included) runs tensor- and sequence-parallel over; see
       ``make_sharded_inference_step``.
@@ -75,6 +81,10 @@ def make_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
     def step(params: Dict, grid_state: OccupancyGridState, batch: Dict,
              generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
+        with span("infer.request"):
+            return serve(params, grid_state, batch, generator, draws)
+
+    def serve(params, grid_state, batch, generator, draws):
         draws = draws or {}
         enc = cfg.latent_hw
         C = cfg.nerf.channel_dim
@@ -84,21 +94,23 @@ def make_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
         B = target_image.shape[0]
 
         # cond 1: VAE latent of the reference view
-        if cfg.train.vae_encode == "mode":
-            reference_lt = encode_images_mode(params["sd"], reference_image, cfg.sd)
-        else:
-            reference_lt = encode_images(params["sd"], reference_image, cfg.sd,
-                                         eps=draws.get("vae_eps"), generator=generator)
+        with span("infer.encode"):
+            if cfg.train.vae_encode == "mode":
+                reference_lt = encode_images_mode(params["sd"], reference_image, cfg.sd)
+            else:
+                reference_lt = encode_images(params["sd"], reference_image, cfg.sd,
+                                             eps=draws.get("vae_eps"), generator=generator)
         stage_end("encode")
 
         # cond 2: NeRF-rendered target latent, eval march; not ×2−1
-        out = render(
-            params["nerf"], grid_state, batch["target_rays_o"],
-            batch["target_rays_d"], cfg.nerf, bg_color=cfg.train.bg_color,
-            max_steps=cfg.train.max_steps_eval, compute_dtype=compute_dtype,
-            sample_budget=(sample_budget if sample_budget is not None
-                           else eval_sample_budget(B * enc * enc, cfg.train)))
-        pred_target_lt = out["image"].reshape(B, enc, enc, C).permute(0, 3, 1, 2)
+        with span("infer.render"):
+            out = render(
+                params["nerf"], grid_state, batch["target_rays_o"],
+                batch["target_rays_d"], cfg.nerf, bg_color=cfg.train.bg_color,
+                max_steps=cfg.train.max_steps_eval, compute_dtype=compute_dtype,
+                sample_budget=(sample_budget if sample_budget is not None
+                               else eval_sample_budget(B * enc * enc, cfg.train)))
+            pred_target_lt = out["image"].reshape(B, enc, enc, C).permute(0, 3, 1, 2)
         stage_end("render")
 
         t_dirs = batch["target_rays_d"].transpose(1, 2).reshape(B, 3, enc, enc)
@@ -130,33 +142,37 @@ def make_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
                                  "generator was")
             latents = torch.randn(reference_lt.shape, generator=generator, device=dev)
         ip_attn_maps = None
-        for i, t in enumerate(ts):
-            last = i == len(ts) - 1
-            eps, maps = unet_eps(latents, t, capture=capture_attn_maps and last)
-            latents, _ = scheduler.step(eps, t, latents, num_inference_steps=num_steps)
-            if maps is not None:
-                ip_attn_maps = maps
+        with span("infer.denoise"):
+            for i, t in enumerate(ts):
+                with span("infer.ddim_step"):
+                    last = i == len(ts) - 1
+                    eps, maps = unet_eps(latents, t, capture=capture_attn_maps and last)
+                    latents, _ = scheduler.step(eps, t, latents,
+                                                num_inference_steps=num_steps)
+                if maps is not None:
+                    ip_attn_maps = maps
         stage_end("denoise")
 
-        decoded = decode_latents(params["sd"], latents.float(), cfg.sd)
-        pred = torch.clamp((decoded + 1.0) / 2.0, 0.0, 1.0)
-        gt = torch.clamp((target_image + 1.0) / 2.0, 0.0, 1.0)
+        with span("infer.decode"):
+            decoded = decode_latents(params["sd"], latents.float(), cfg.sd)
+            pred = torch.clamp((decoded + 1.0) / 2.0, 0.0, 1.0)
+            gt = torch.clamp((target_image + 1.0) / 2.0, 0.0, 1.0)
 
-        # NeRF-side quality of the novel-view latent, independent of the
-        # diffusion weights: PSNR of the render against the mode encode of
-        # the target view, both in the normalized space the joint loss
-        # supervises ((lt + 1) / 2)
-        target_lt = encode_images_mode(params["sd"], target_image, cfg.sd)
-        result = {
-            "denoised_image": pred,
-            "target_image": gt,
-            "latent_psnr": psnr(pred_target_lt, (target_lt + 1.0) / 2.0),
-            "reference_image": torch.clamp((reference_image + 1) / 2, 0, 1),
-            "pred_target_latent": pred_target_lt,
-            "l2_loss": l2_loss(pred, gt),
-            "psnr": psnr(pred, gt),
-            "ssim": ssim(pred, gt),
-        }
+            # NeRF-side quality of the novel-view latent, independent of the
+            # diffusion weights: PSNR of the render against the mode encode of
+            # the target view, both in the normalized space the joint loss
+            # supervises ((lt + 1) / 2)
+            target_lt = encode_images_mode(params["sd"], target_image, cfg.sd)
+            result = {
+                "denoised_image": pred,
+                "target_image": gt,
+                "latent_psnr": psnr(pred_target_lt, (target_lt + 1.0) / 2.0),
+                "reference_image": torch.clamp((reference_image + 1) / 2, 0, 1),
+                "pred_target_latent": pred_target_lt,
+                "l2_loss": l2_loss(pred, gt),
+                "psnr": psnr(pred, gt),
+                "ssim": ssim(pred, gt),
+            }
         if ip_attn_maps is not None:
             result["ip_attn_maps"] = ip_attn_maps
         stage_end("decode")

@@ -14,6 +14,11 @@ Gradients reach only the trainable partition: frozen tensors have
 ``requires_grad`` off, so autograd computes no frozen weight gradients.
 The random draws (VAE eps, noise, timesteps, ray perturbation) can be
 injected, so a test can feed both packages the same numbers.
+
+Spans (``utils/profiling.py``): ``joint.step`` over a train step, and in
+it ``joint.vae_encode`` (1), ``joint.render`` (3), ``joint.unet`` (7-8),
+``joint.backward`` and ``joint.optimizer`` (the all-reduce, the update,
+``zero_grad`` and the lr schedule).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ..parallel.fsdp import global_token_pairing
 from ..parallel.sharding import all_reduce_mean_
 from ..utils.device import resolve_device
 from ..utils.losses import l1_loss, mse_loss
+from ..utils.profiling import span
 from ..utils.tree import tree_leaves, tree_leaves_with_path, tree_map
 
 
@@ -176,8 +182,8 @@ def forward_iteration(params: Dict, grid_state: OccupancyGridState, batch: Dict,
     dev = target_image.device
 
     # 1. frozen VAE encode in the images' dtype (float32), no grad
-    images = torch.cat([target_image, batch["reference_image"]], dim=0)
-    with torch.no_grad():
+    with span("joint.vae_encode"), torch.no_grad():
+        images = torch.cat([target_image, batch["reference_image"]], dim=0)
         if cfg.train.vae_encode == "mode":
             latents = encode_images_mode(params["sd"], images, cfg.sd)
         else:
@@ -190,20 +196,21 @@ def forward_iteration(params: Dict, grid_state: OccupancyGridState, batch: Dict,
         return (lt.permute(0, 2, 3, 1).reshape(B, -1, C) + 1.0) / 2.0
 
     # 3. NeRF render, target and reference batched
-    rays_o = torch.cat([batch["target_rays_o"], batch["reference_rays_o"]], 0)
-    rays_d = torch.cat([batch["target_rays_d"], batch["reference_rays_d"]], 0)
-    n_rays = rays_o.shape[0] * rays_o.shape[1]
-    perturb = None
-    if train:
-        perturb = draw("perturb", lambda: torch.rand(n_rays, generator=generator,
-                                                     device=dev))
-    elif sample_budget is None:
-        sample_budget = eval_sample_budget(n_rays, cfg.train)
-    out = render(params["nerf"], grid_state, rays_o, rays_d, cfg.nerf,
-                 bg_color=cfg.train.bg_color,
-                 max_steps=cfg.train.max_steps_train if train else cfg.train.max_steps_eval,
-                 perturb=perturb, compute_dtype=compute_dtype,
-                 sample_budget=sample_budget)
+    with span("joint.render"):
+        rays_o = torch.cat([batch["target_rays_o"], batch["reference_rays_o"]], 0)
+        rays_d = torch.cat([batch["target_rays_d"], batch["reference_rays_d"]], 0)
+        n_rays = rays_o.shape[0] * rays_o.shape[1]
+        perturb = None
+        if train:
+            perturb = draw("perturb", lambda: torch.rand(n_rays, generator=generator,
+                                                         device=dev))
+        elif sample_budget is None:
+            sample_budget = eval_sample_budget(n_rays, cfg.train)
+        out = render(params["nerf"], grid_state, rays_o, rays_d, cfg.nerf,
+                     bg_color=cfg.train.bg_color,
+                     max_steps=cfg.train.max_steps_train if train else cfg.train.max_steps_eval,
+                     perturb=perturb, compute_dtype=compute_dtype,
+                     sample_budget=sample_budget)
     pred_target, pred_reference = out["image"].chunk(2, dim=0)
 
     # 4. reconstruction loss
@@ -227,10 +234,11 @@ def forward_iteration(params: Dict, grid_state: OccupancyGridState, batch: Dict,
     noisy_latents = scheduler.add_noise(target_lt, noise, timesteps)
 
     # 7-8. U-Net prediction + diffusion loss
-    noise_pred = sd_forward(params["sd"], noisy_latents, timesteps, image_embeds,
-                            cfg.sd, compute_dtype=compute_dtype, pair_tokens=pair_tokens,
-                            tp_axis=tp_axis)
-    sd_loss = mse_loss(noise_pred.float(), noise)
+    with span("joint.unet"):
+        noise_pred = sd_forward(params["sd"], noisy_latents, timesteps, image_embeds,
+                                cfg.sd, compute_dtype=compute_dtype,
+                                pair_tokens=pair_tokens, tp_axis=tp_axis)
+        sd_loss = mse_loss(noise_pred.float(), noise)
     aux = {"pred_target_latent": pred_target, "weights_sum": out["weights_sum"],
            "noisy_latents": noisy_latents, "noise_pred": noise_pred}
     return sd_loss, nerf_loss, aux
@@ -360,6 +368,10 @@ def make_train_step(cfg: JointConfig, scheduler: DDIMScheduler,
     calls = [0]
 
     def step(params, grid_state, batch, generator=None, draws=None):
+        with span("joint.step"):
+            return run_step(params, grid_state, batch, generator, draws)
+
+    def run_step(params, grid_state, batch, generator, draws):
         check_batch_device(batch, dev)
         used = fsdp.gather(params) if fsdp is not None else params
         sd_loss, nerf_loss, aux = forward_iteration(
@@ -367,25 +379,27 @@ def make_train_step(cfg: JointConfig, scheduler: DDIMScheduler,
             compute_dtype=compute_dtype, sample_budget=sample_budget,
             generator=generator, draws=draws, pair_tokens=pair_tokens, tp_axis=tp_axis)
         total = sd_loss + nerf_loss
-        total.backward()
-        if fsdp is not None:
-            fsdp.reduce_scatter_grads(used, params)
+        with span("joint.backward"):
+            total.backward()
+            if fsdp is not None:
+                fsdp.reduce_scatter_grads(used, params)
         del used
         calls[0] += 1
         if calls[0] % accum == 0:
-            with_grad = [p for group in optimizer.param_groups for p in group["params"]
-                         if p.grad is not None]
-            if mesh is not None:
-                # the slices' gradients are averaged already
-                all_reduce_mean_([p.grad for p in with_grad
-                                  if fsdp is None or not fsdp.is_shard(p)], mesh)
-            if accum > 1:
-                for p in with_grad:
-                    p.grad.div_(accum)
-            optimizer.step()
-            optimizer.zero_grad(set_to_none=True)
-            if lr_scheduler is not None:
-                lr_scheduler.step()
+            with span("joint.optimizer"):
+                with_grad = [p for group in optimizer.param_groups for p in group["params"]
+                             if p.grad is not None]
+                if mesh is not None:
+                    # the slices' gradients are averaged already
+                    all_reduce_mean_([p.grad for p in with_grad
+                                      if fsdp is None or not fsdp.is_shard(p)], mesh)
+                if accum > 1:
+                    for p in with_grad:
+                        p.grad.div_(accum)
+                optimizer.step()
+                optimizer.zero_grad(set_to_none=True)
+                if lr_scheduler is not None:
+                    lr_scheduler.step()
         losses = torch.stack([total.detach(), sd_loss.detach(), nerf_loss.detach()])
         if mesh is not None:
             all_reduce_mean_([losses], mesh)

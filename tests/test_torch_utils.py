@@ -34,14 +34,6 @@ def test_step_timer_observe_equals_jax():
     assert tprof.StepTimer().steps_per_sec() == jprof.StepTimer().steps_per_sec() == 0.0
 
 
-def test_step_timer_context_counts_steps():
-    t = tprof.StepTimer()
-    for _ in range(3):
-        with t.step(rays=10):
-            pass
-    assert (t.total_steps, t.total_rays) == (3, 30) and t.avg_dt is not None
-
-
 def test_device_memory_stats_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
