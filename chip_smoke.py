@@ -5,7 +5,7 @@
 
 Phases, each printed as one JSON line; any failure exits non-zero:
   card         the card's name and power limit; the CUDA kernels built from
-               stable_nerf_tpu_torch/csrc/ (both sources compiled at once;
+               stable_nerf_tpu_torch/csrc/ (every source compiled at once;
                build seconds, ptxas report);
   setup        random full-width weights and a batch of one scene: the SDXL
                U-Net and VAE, the 16-level 2^19 hash grid, 512² images,
@@ -20,6 +20,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                (f) a stochastic section [2^17, 8, 1], (g) rows outside their
                level's slab, negative and padding rows, (h) an odd M and T;
                each with the zero fill's time apart; (i) comes with fit_nerf;
+               then the hash-encode kernel, forward and backward, on chunk
+               a, exact and one corner a level (kernel, bound and plain ms);
   gather_cases the sorted row-gather kernel against its plain version, bit
                for bit: (a) the sorted-encode floor shape (33,554,432 sorted
                items, 16·2^19 rows, f32), (b) the reference tests' three
@@ -414,6 +416,71 @@ def scatter_case(name, idx, upd, n_levels, table_size, payload_bf16, reps):
     return row
 
 
+def encode_case(name, x, cfg, stochastic, min_level, reps):
+    """The encode kernel, forward and backward (rows and updates for the
+    scatter kernel), against the plain functions on the same positions: the
+    rows and updates bit for bit, the features within 1e-6 of the table's
+    largest magnitude.  Bounds count the positions (and in the backward
+    the features' gradient) read once, the output written once and, in
+    the forward, every corner's row gathered with no reuse."""
+    import torch
+
+    from stable_nerf_tpu_torch.ops import encoding
+    from stable_nerf_tpu_torch.ops.hopper.encode import (hash_encode_backward,
+                                                         hash_encode_forward)
+
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features_per_level
+    M = x.shape[0]
+    g = torch.Generator(device=x.device).manual_seed(SEED)
+    table = torch.rand((L * T, F), generator=g, device=x.device) * 2 - 1
+    gout = torch.randn((M, L * F), generator=g, device=x.device)
+    levels = encoding.level_table(cfg, stochastic, min_level)
+    sections = encoding._sections(L, stochastic, min_level)
+
+    def fwd():
+        return hash_encode_forward(x, table, levels, T)
+
+    def bwd():
+        return [hash_encode_backward(x, gout, levels, lv0, lv1, T)
+                for lv0, lv1, _ in sections]
+
+    def plain_fwd():
+        return encoding._encode_sections(
+            table, encoding._hash_sections(x, cfg, stochastic, min_level))
+
+    def plain_bwd():
+        g4 = gout.reshape(M, L, 1, F)
+        return [((rows - lv0 * T).to(torch.int32),
+                 (cw[..., None] * g4[:, lv0:lv0 + rows.shape[1]]).contiguous())
+                for lv0, rows, cw in encoding._hash_sections(x, cfg, stochastic, min_level)]
+
+    out, want = fwd(), plain_fwd()
+    got_b, want_b = bwd(), plain_bwd()
+    torch.cuda.synchronize()
+    gap = float((out - want).abs().max())
+    tol = 1e-6 * float(table.abs().max())
+    rows_equal = all(torch.equal(a[0], b[0]) for a, b in zip(got_b, want_b))
+    upd_equal = all(torch.equal(a[1], b[1]) for a, b in zip(got_b, want_b))
+    del out, want, got_b, want_b
+    corners = sum((lv1 - lv0) * (1 if one else 8) for lv0, lv1, one in sections)
+    fwd_bytes = M * 12 + M * L * F * 4 + M * corners * F * 4
+    bwd_bytes = M * 12 + M * L * F * 4 + M * corners * (4 + F * 4)
+    row = {
+        "case": name, "samples": M, "levels": L, "corners_a_sample": corners, "features": F,
+        "rows_equal": rows_equal, "updates_equal": upd_equal,
+        "features_max_abs_gap": gap, "features_tolerance": tol,
+        "forward_ms": cuda_ms(fwd, reps, queued=True),
+        "forward_bound_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+        "forward_plain_ms": cuda_ms(plain_fwd, 3, queued=True),
+        "backward_ms": cuda_ms(bwd, reps, queued=True),
+        "backward_bound_ms": bwd_bytes / HBM_BYTES_PER_S * 1e3,
+        "backward_plain_ms": cuda_ms(plain_bwd, 3, queued=True),
+        "bound_by": "bytes",
+    }
+    row["ok"] = bool(rows_equal and upd_equal and gap <= tol)
+    return row
+
+
 def main_path_positions(cfg, batch, dev, g):
     """The normalized hash-encode positions [2^17, 3] of the first NeRF
     chunk of a train step on ``batch``: the dense lattice of the target
@@ -509,6 +576,11 @@ def kernel_cases(dev, x_main):
         cases.append(scatter_case(name, idx, upd, cfg.n_levels, T, False, reps=20))
         breakdowns[name] = per_level_breakdown(idx, upd, cfg, reps=20)
         del idx, upd
+
+    # the encode kernel on the same chunk: exact (the train and fit
+    # cells) and one corner a level (the stochastic fit)
+    cases.append(encode_case("encode_main_path", x_main, cfg, False, 0, reps=20))
+    cases.append(encode_case("encode_main_path_stochastic", x_main, cfg, True, 0, reps=20))
 
     # (b) a K2-shaped table: L'·T = 3·1024 (a multiple of 1024, not 4096)
     L, Tb, Mb = 3, 1024, 100_000

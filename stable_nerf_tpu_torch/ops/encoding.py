@@ -1,24 +1,33 @@
 """Input encodings: multiresolution hash grid and spherical harmonics
 (counterpart of stable_nerf_tpu/ops/encoding.py).
 
-The hash grid keeps one [L·T, F] table.  Its uint32 arithmetic (the tcnn
-spatial hash and the murmur-style mix of the stochastic corner draw) is
-emulated in int64 and masked to 32 bits after every multiply, so row
-indices match the reference bit for bit.  The custom backward recomputes
-indices and weights from the saved positions and sends the table gradient
-to the scatter kernel (ops/hopper/scatter.py), one slab per level section.
-Spans (``utils/profiling.py``): ``nerf.hash_encode`` over the encode and
-``nerf.hash_encode_backward`` over the custom backward.
+The hash grid keeps one [L·T, F] table.  On a CUDA tensor the encode is
+the hand-written kernel of ``csrc/hash_encode.cu`` (ops/hopper/encode.py):
+rows, weights and the one-corner draw in registers, from a level table
+built once per grid configuration (``level_table``); its backward writes
+each level section's rows and updates in one pass and sends them to the
+scatter kernel (ops/hopper/scatter.py).  The plain functions below are
+the same encode in PyTorch, the parity reference the CPU tests hold to
+JAX: their uint32 arithmetic (the tcnn spatial hash and the murmur-style
+mix of the stochastic corner draw) is emulated in int64 and masked to 32
+bits after every multiply, so row indices match the reference bit for
+bit.  ``_use_kernel`` is the dispatch rule.  Spans
+(``utils/profiling.py``): ``nerf.hash_encode`` over the encode and
+``nerf.hash_encode_backward`` over the custom backward; counters
+``nerf.encode_samples`` (every encode's samples) and
+``nerf.encode_kernel_samples`` (those the kernel served).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from ..config import HashGridConfig
-from ..utils.profiling import span
+from ..utils.profiling import count, span
+from .hopper.encode import LevelParams, hash_encode_backward, hash_encode_forward
 from .hopper.scatter import hash_scatter_add_per_level
 
 # tcnn spatial hash primes (grid.h)
@@ -140,18 +149,49 @@ def _indices_weights_stochastic(x, cfg: HashGridConfig, lv0: int, lv1: int):
     return rows, torch.ones(rows.shape, dtype=torch.float32, device=x.device)
 
 
-def _hash_sections(x, cfg: HashGridConfig, stochastic: bool, min_level: int):
-    """The encode as level sections [(lv0, rows [M, L', C], cw [M, L', C])].
-    Exact or fully stochastic is one section; the hybrid (stochastic with
+def _sections(n_levels: int, stochastic: bool, min_level: int):
+    """The encode's level sections [(lv0, lv1, one corner?)]: exact or
+    fully stochastic is one section; the hybrid (stochastic with
     0 < min_level < L) is exact on [0, min_level) and one corner on the
     rest."""
-    L = cfg.n_levels
-    if not stochastic or min_level >= L:
-        return [(0, *_indices_weights_exact(x, cfg, 0, L))]
+    if not stochastic or min_level >= n_levels:
+        return [(0, n_levels, False)]
     if min_level <= 0:
-        return [(0, *_indices_weights_stochastic(x, cfg, 0, L))]
-    return [(0, *_indices_weights_exact(x, cfg, 0, min_level)),
-            (min_level, *_indices_weights_stochastic(x, cfg, min_level, L))]
+        return [(0, n_levels, True)]
+    return [(0, min_level, False), (min_level, n_levels, True)]
+
+
+def _hash_sections(x, cfg: HashGridConfig, stochastic: bool, min_level: int):
+    """The encode as level sections [(lv0, rows [M, L', C], cw [M, L', C])]."""
+    return [(lv0, *(_indices_weights_stochastic if one else _indices_weights_exact)(
+        x, cfg, lv0, lv1)) for lv0, lv1, one in _sections(cfg.n_levels, stochastic, min_level)]
+
+
+@functools.lru_cache(maxsize=None)
+def level_table(cfg: HashGridConfig, stochastic: bool = False, min_level: int = 0):
+    """The kernel's level table, one ``LevelParams`` a level: the f32
+    scale, resolution and dense flag of ``_level_geometry``, the level's
+    first row l·T, the salt of ``_stateless_uniform3`` and whether the
+    level draws one corner (``_sections``).  Built once per configuration
+    and passed by value at every launch."""
+    scales, resolutions, dense = _level_geometry(cfg)
+    one = [False] * cfg.n_levels
+    for lv0, lv1, one_corner in _sections(cfg.n_levels, stochastic, min_level):
+        one[lv0:lv1] = [one_corner] * (lv1 - lv0)
+    table = (LevelParams * cfg.n_levels)()
+    for l in range(cfg.n_levels):
+        table[l] = LevelParams(scales[l], resolutions[l], dense[l], l * cfg.table_size,
+                               (l * 0x9E3779B9) & _MASK32, one[l])
+    return table
+
+
+def _use_kernel(device_type: str, custom_bwd: bool, grad_wanted: bool) -> bool:
+    """The dispatch rule: on a CUDA tensor the kernel serves every call
+    with the custom backward and every call that wants no gradient; only
+    autograd through the gather (``custom_bwd=False`` under gradient, the
+    one path that gives positions a true gradient) takes the plain
+    functions there.  A CPU call always takes them."""
+    return device_type == "cuda" and (custom_bwd or not grad_wanted)
 
 
 def _encode_sections(table: torch.Tensor, sections) -> torch.Tensor:
@@ -165,36 +205,47 @@ def _encode_sections(table: torch.Tensor, sections) -> torch.Tensor:
 
 
 class _HashEncode(torch.autograd.Function):
-    """Saves only ``x``; the backward recomputes rows and weights and
-    scatters each section's table gradient through the kernel wrapper.
-    Positions get a zero gradient (reference encoding.py:253-276)."""
+    """Saves only ``x``; the backward recomputes rows and weights (in the
+    kernel on the card) and scatters each section's table gradient
+    through the scatter kernel's wrapper.  Positions get a zero gradient
+    (reference encoding.py:253-276)."""
 
     @staticmethod
-    def forward(ctx, table, x, cfg, stochastic, grad_bf16, min_level):
+    def forward(ctx, table, x, cfg, stochastic, grad_bf16, min_level, kernel):
         ctx.save_for_backward(x)
-        ctx.args = (cfg, stochastic, grad_bf16, min_level)
-        return _encode_sections(table, _hash_sections(x, cfg, stochastic,
-                                                      min_level))
+        ctx.args = (cfg, stochastic, grad_bf16, min_level, kernel)
+        if kernel:
+            return hash_encode_forward(x, table, level_table(cfg, stochastic, min_level),
+                                       cfg.table_size)
+        return _encode_sections(table, _hash_sections(x, cfg, stochastic, min_level))
 
     @staticmethod
     def backward(ctx, g):
         with span("nerf.hash_encode_backward"):
             (x,) = ctx.saved_tensors
-            cfg, stochastic, grad_bf16, min_level = ctx.args
+            cfg, stochastic, grad_bf16, min_level, kernel = ctx.args
             M = x.shape[0]
             F = cfg.n_features_per_level
             T = cfg.table_size
-            g = g.float().reshape(M, cfg.n_levels, 1, F)
             slabs = []
-            for lv0, rows, cw in _hash_sections(x, cfg, stochastic, min_level):
-                Lp = rows.shape[1]
-                upd = (cw[..., None] * g[:, lv0:lv0 + Lp]).contiguous()
-                local = (rows - lv0 * T).to(torch.int32)
-                slabs.append(hash_scatter_add_per_level(local, upd, Lp, T,
-                                                        payload_bf16=grad_bf16))
+            if kernel:
+                levels = level_table(cfg, stochastic, min_level)
+                g = g.float().reshape(M, cfg.n_levels * F).contiguous()
+                for lv0, lv1, _ in _sections(cfg.n_levels, stochastic, min_level):
+                    local, upd = hash_encode_backward(x, g, levels, lv0, lv1, T)
+                    slabs.append(hash_scatter_add_per_level(local, upd, lv1 - lv0, T,
+                                                            payload_bf16=grad_bf16))
+            else:
+                g = g.float().reshape(M, cfg.n_levels, 1, F)
+                for lv0, rows, cw in _hash_sections(x, cfg, stochastic, min_level):
+                    Lp = rows.shape[1]
+                    upd = (cw[..., None] * g[:, lv0:lv0 + Lp]).contiguous()
+                    local = (rows - lv0 * T).to(torch.int32)
+                    slabs.append(hash_scatter_add_per_level(local, upd, Lp, T,
+                                                            payload_bf16=grad_bf16))
             table_grad = slabs[0] if len(slabs) == 1 else torch.cat(slabs)
             x_grad = torch.zeros_like(x) if ctx.needs_input_grad[1] else None
-        return table_grad, x_grad, None, None, None, None
+        return table_grad, x_grad, None, None, None, None, None
 
 
 def hash_grid_encode(params: dict, x: torch.Tensor, cfg: HashGridConfig,
@@ -208,14 +259,24 @@ def hash_grid_encode(params: dict, x: torch.Tensor, cfg: HashGridConfig,
     stochastic: one corner per level instead of trilinear interpolation.
     grad_bf16: (custom_bwd only) round table-gradient updates to bf16.
     stochastic_min_level: hybrid mode, exact below this level.
+
+    On a CUDA tensor the encode kernel serves the call unless it needs
+    autograd through the gather (``_use_kernel``); a shape or dtype the
+    kernel does not take raises.
     """
     batch_shape = x.shape[:-1]
     xf = x.reshape(-1, 3).float()
     table = params["table"]
+    grad_wanted = torch.is_grad_enabled() and (table.requires_grad or xf.requires_grad)
+    kernel = _use_kernel(xf.device.type, custom_bwd, grad_wanted)
+    count("nerf.encode_samples", xf.shape[0])
+    if kernel:
+        count("nerf.encode_kernel_samples", xf.shape[0])
+        xf = xf.contiguous()
     with span("nerf.hash_encode"):
-        if custom_bwd:
+        if custom_bwd or kernel:
             out = _HashEncode.apply(table, xf, cfg, stochastic, grad_bf16,
-                                    stochastic_min_level)
+                                    stochastic_min_level, kernel)
         else:
             out = _encode_sections(table, _hash_sections(xf, cfg, stochastic,
                                                          stochastic_min_level))

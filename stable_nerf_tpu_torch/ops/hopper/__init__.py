@@ -1,5 +1,7 @@
 """Wrappers of the hand-written Hopper (sm_90a) kernels in ``csrc/``.
 
-Each wrapper takes its plain PyTorch version for a tensor on the CPU and
-launches its kernel for a tensor on the card; there is no fallback from
-one to the other."""
+Each wrapper launches its kernel for a tensor on the card and raises on
+what the kernel does not take; there is no fallback from one to the
+other.  The scatter and gather wrappers take their plain PyTorch versions
+for a tensor on the CPU; the encode's plain version is
+``ops/encoding.py``'s, whose ``hash_grid_encode`` chooses between them."""

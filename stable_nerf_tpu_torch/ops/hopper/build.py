@@ -30,6 +30,17 @@ _SIGNATURES = {
                               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               ctypes.c_void_p], ctypes.c_int),
     },
+    "hash_encode": {
+        "hash_encode_forward": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+                                ctypes.c_int),
+        "hash_encode_backward": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+                                 ctypes.c_int),
+    },
     "sorted_gather": {
         "sorted_window_gather": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,

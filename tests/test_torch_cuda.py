@@ -10,7 +10,10 @@ Tolerance: the scatter kernel sums a row in per-thread runs, per-block
 partial sums and f32 atomics whose order changes from run to run, so each
 row's sum is held to 1e-5 of the row's sum of |updates| against the plain
 version's index_add_; the encode's table
-gradient (~10 updates a row) to 1e-5 relative and absolute.  The gather
+gradient (~10 updates a row) to 1e-5 relative and absolute.  The encode
+kernel's rows, one-corner features and updates equal the plain version's
+bit for bit; its interpolated features (eight products summed in another
+order) are held to 1e-6 of the table's largest magnitude.  The gather
 kernel only rounds and moves values: bit for bit.  The tiny inference
 step on the card against the CPU: 1e-3 of each key's scale (float32 sums
 in other orders through three U-Net passes and the VAE decode).  The demo
@@ -23,6 +26,8 @@ import torch
 
 from stable_nerf_tpu_torch.config import HashGridConfig
 from stable_nerf_tpu_torch.ops import encoding
+from stable_nerf_tpu_torch.ops.hopper.encode import (hash_encode_backward,
+                                                     hash_encode_forward)
 from stable_nerf_tpu_torch.ops.hopper.gather import (sorted_window_gather,
                                                      sorted_window_gather_plain)
 from stable_nerf_tpu_torch.ops.hopper.scatter import (hash_scatter_add_per_level,
@@ -72,12 +77,14 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
         hash_scatter_add_per_level(idx, torch.zeros((4, 1, 8, 2), device=cuda), 1, 16)
 
 
-@pytest.mark.parametrize("mode,sections", [("exact", 1), ("hybrid", 2)])
+@pytest.mark.parametrize("mode,sections", [("exact", 1), ("hybrid", 2), ("stochastic", 1)])
 def test_hash_encode_table_grad_through_kernel(cuda, mode, sections):
-    """The encode's custom backward on the card (one kernel launch per
-    level section) against the same backward on the CPU (plain version)."""
+    """The encode's custom backward on the card (the encode kernel's rows
+    and updates, then one scatter launch per level section) against the
+    same backward on the CPU (plain version)."""
     cfg = HashGridConfig(n_levels=6, log2_hashmap_size=12, base_resolution=4)
-    kw = dict(custom_bwd=True, stochastic=mode == "hybrid", stochastic_min_level=3)
+    kw = dict(custom_bwd=True, stochastic=mode != "exact",
+              stochastic_min_level=3 if mode == "hybrid" else 0)
     g = torch.Generator().manual_seed(1)
     x = torch.rand((5000, 3), generator=g)
     table = torch.rand((cfg.n_levels * cfg.table_size, 2), generator=g) * 2 - 1
@@ -85,13 +92,129 @@ def test_hash_encode_table_grad_through_kernel(cuda, mode, sections):
     grads = {}
     for dev in ("cpu", "cuda"):
         t = table.to(dev, copy=True).requires_grad_(True)
-        before = hash_scatter_add_per_level.launches
+        before = (hash_scatter_add_per_level.launches, hash_encode_forward.launches,
+                  hash_encode_backward.launches)
         (encoding.hash_grid_encode({"table": t}, x.to(dev), cfg, **kw)
          * gout.to(dev)).sum().backward()
-        launched = hash_scatter_add_per_level.launches - before
-        assert launched == (sections if dev == "cuda" else 0)
+        launched = (hash_scatter_add_per_level.launches - before[0],
+                    hash_encode_forward.launches - before[1],
+                    hash_encode_backward.launches - before[2])
+        assert launched == ((sections, 1, sections) if dev == "cuda" else (0, 0, 0))
         grads[dev] = t.grad.cpu()
     torch.testing.assert_close(grads["cuda"], grads["cpu"], rtol=1e-5, atol=1e-5)
+
+
+ENCODE_MODES = {"exact": (False, 0), "stochastic": (True, 0), "hybrid": (True, 3)}
+ENCODE_GRIDS = {   # levels 0-3 dense and 4-5 hashed at T = 2^12; every level hashed at 2^9
+    "dense_and_hashed": dict(n_levels=6, log2_hashmap_size=12, base_resolution=4),
+    "hashed": dict(n_levels=5, log2_hashmap_size=9, base_resolution=16),
+}
+
+
+def _encode_positions(M, g, dev):
+    """M uniform positions, the first ones at the cube's corners and centre
+    and outside [0, 1] (the budget's padded slots sit at 0.5)."""
+    x = torch.rand((M, 3), generator=g, device=dev)
+    x[:8] = torch.tensor([[0, 0, 0], [1, 1, 1], [0.5, 0.5, 0.5], [-0.25, 0.5, 1.75],
+                          [1.5, -0.5, 0.5], [0.999999, 1e-7, 0.5], [1, 0, 1],
+                          [2.0, 3.0, -1.0]], device=dev)
+    return x
+
+
+@pytest.mark.parametrize("F", [1, 2, 4])
+@pytest.mark.parametrize("grid", sorted(ENCODE_GRIDS))
+@pytest.mark.parametrize("mode", sorted(ENCODE_MODES))
+def test_encode_kernel_matches_plain(cuda, mode, grid, F):
+    """Forward features and the backward's rows and updates against the
+    plain functions on the same card: rows, one-corner features and
+    updates bit for bit, interpolated features within 1e-6 of the table's
+    largest magnitude (eight products summed in another order)."""
+    cfg = HashGridConfig(n_features_per_level=F, **ENCODE_GRIDS[grid])
+    stochastic, min_level = ENCODE_MODES[mode]
+    L, T = cfg.n_levels, cfg.table_size
+    g = torch.Generator(device=cuda).manual_seed(3)
+    M = 20_003                                  # no multiple of the block
+    x = _encode_positions(M, g, cuda)
+    table = torch.rand((L * T, F), generator=g, device=cuda) * 2 - 1
+    gout = torch.randn((M, L * F), generator=g, device=cuda)
+    levels = encoding.level_table(cfg, stochastic, min_level)
+    sections = encoding._hash_sections(x, cfg, stochastic, min_level)
+
+    got = hash_encode_forward(x, table, levels, T)
+    want = encoding._encode_sections(table, sections)
+    torch.cuda.synchronize()
+    for lv0, rows, _ in sections:
+        a, b = lv0 * F, (lv0 + rows.shape[1]) * F
+        if rows.shape[2] == 1:
+            assert torch.equal(got[:, a:b], want[:, a:b])
+        else:
+            torch.testing.assert_close(got[:, a:b], want[:, a:b], rtol=1e-6,
+                                       atol=1e-6 * float(table.abs().max()))
+    g4 = gout.reshape(M, L, 1, F)
+    for lv0, rows, cw in sections:
+        lv1 = lv0 + rows.shape[1]
+        local, upd = hash_encode_backward(x, gout, levels, lv0, lv1, T)
+        assert local.dtype == torch.int32 and local.shape == rows.shape
+        assert torch.equal(local, (rows - lv0 * T).to(torch.int32))
+        assert torch.equal(upd, cw[..., None] * g4[:, lv0:lv1])
+
+
+def test_encode_wrapper_raises_instead_of_falling_back(cuda):
+    cfg = HashGridConfig(n_levels=4, log2_hashmap_size=10, base_resolution=4)
+    levels = encoding.level_table(cfg)
+    T = cfg.table_size
+    x = torch.rand((64, 3), device=cuda)
+    table = torch.rand((4 * T, 2), device=cuda)
+    gout = torch.rand((64, 8), device=cuda)
+    before = (hash_encode_forward.launches, hash_encode_backward.launches)
+    with pytest.raises(ValueError):
+        hash_encode_forward(torch.rand((3, 64), device=cuda).T, table, levels, T)
+    with pytest.raises(TypeError):
+        hash_encode_forward(x.double(), table, levels, T)
+    with pytest.raises(TypeError):
+        hash_encode_forward(x, table.to(torch.bfloat16), levels, T)
+    with pytest.raises(ValueError):
+        hash_encode_forward(x, torch.rand((4 * T, 3), device=cuda), levels, T)
+    with pytest.raises(ValueError):
+        hash_encode_backward(x, gout[:, :6], levels, 0, 4, T)
+    with pytest.raises(ValueError):
+        hash_encode_backward(x, torch.rand((16, 64), device=cuda).T, levels, 0, 4, T)
+    with pytest.raises(TypeError):     # through the encode: no plain fallback
+        encoding.hash_grid_encode({"table": table.to(torch.bfloat16)}, x, cfg,
+                                  custom_bwd=True)
+    assert (hash_encode_forward.launches, hash_encode_backward.launches) == before
+
+
+def test_encode_dispatch_moves_launches_and_counters(cuda):
+    """On the card: the custom backward and a call without gradient
+    launch the kernel; autograd through the gather does not.  The
+    counters count every encode's samples and the kernel's."""
+    from stable_nerf_tpu_torch.utils import profiling
+
+    cfg = HashGridConfig(n_levels=4, log2_hashmap_size=10, base_resolution=4)
+    M = 1000
+    x = torch.rand((M, 3), device=cuda)
+    table = torch.rand((4 * cfg.table_size, 2), device=cuda)
+
+    def run(custom_bwd, grad):
+        t = table.clone().requires_grad_(grad)
+        before = (hash_encode_forward.launches, hash_encode_backward.launches)
+        profiling.reset_spans()
+        with profiling.tracing():
+            with torch.set_grad_enabled(grad):
+                out = encoding.hash_grid_encode({"table": t}, x, cfg, custom_bwd=custom_bwd)
+            if grad:
+                out.sum().backward()
+            counts = profiling.counters()
+        profiling.reset_spans()
+        return ((hash_encode_forward.launches - before[0],
+                 hash_encode_backward.launches - before[1]),
+                counts.get("nerf.encode_samples"), counts.get("nerf.encode_kernel_samples"))
+
+    assert run(True, True) == ((1, 1), M, M)
+    assert run(True, False) == ((1, 0), M, M)
+    assert run(False, False) == ((1, 0), M, M)
+    assert run(False, True) == ((0, 0), M, None)
 
 
 @pytest.mark.parametrize("T,F,M,dtype,is_sorted", [

@@ -241,8 +241,11 @@ def test_render_counters_equal_the_marchs_counts(budget):
     assert budget is None or int(valid.sum()) > budget       # the budget drops samples
     want_samples = dense if budget is None else budget
     want_valid = int(valid.sum()) if budget is None else min(int(valid.sum()), budget)
+    # the encode counts the samples the network evaluates; on the CPU no
+    # kernel serves them
     assert profiling.counters() == {"render.samples": want_samples,
-                                    "render.valid_samples": want_valid}
+                                    "render.valid_samples": want_valid,
+                                    "nerf.encode_samples": want_samples}
 
 
 # ------------------------------------------------ the benchmark's readers
@@ -350,6 +353,7 @@ def test_card_spans_time_the_device_and_add_no_synchronize():
     offs = [c for on, c in runs if not on]
     assert profiling.span_records() and all(c in offs for on, c in runs if on)
     assert not any("profiling" in f for _, c in runs for f, _ in c)
+    assert not any(f.endswith("encoding.py") for _, c in runs for f, _ in c)
     profiling.reset_spans()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]):
