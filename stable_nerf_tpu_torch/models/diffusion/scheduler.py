@@ -68,6 +68,11 @@ class DDIMScheduler(NamedTuple):
             return (np.arange(c.num_train_timesteps, 0, -ratio).round() - 1).astype(np.int64)
         raise ValueError(f"unsupported timestep_spacing {c.timestep_spacing}")
 
+    def _lookup(self, t: torch.Tensor) -> torch.Tensor:
+        """``alphas_cumprod`` at the integer tensor ``t``, in ``t``'s shape,
+        without a host read."""
+        return self.alphas_cumprod.index_select(0, t.reshape(-1)).reshape(t.shape)
+
     def step(self, model_output, timestep, sample, *, num_inference_steps: int,
              eta: float = 0.0, noise=None):
         """One DDIM update x_t → x_{t−Δ}; returns (prev_sample, pred_x0)."""
@@ -75,9 +80,11 @@ class DDIMScheduler(NamedTuple):
         dev = self.alphas_cumprod.device
         t = torch.as_tensor(timestep, device=dev)
         prev_t = t - c.num_train_timesteps // num_inference_steps
-        alpha_prod_t = self.alphas_cumprod[t]
+        # a gather, not ``table[t]``: indexing by a 0-d tensor reads the
+        # index to the host, which would synchronize (and break a capture)
+        alpha_prod_t = self._lookup(t)
         alpha_prod_prev = torch.where(
-            prev_t >= 0, self.alphas_cumprod[torch.clamp(prev_t, min=0)],
+            prev_t >= 0, self._lookup(torch.clamp(prev_t, min=0)),
             self.final_alpha_cumprod)
         beta_prod_t = 1.0 - alpha_prod_t
         if c.prediction_type == "epsilon":

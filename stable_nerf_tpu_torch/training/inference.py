@@ -14,13 +14,18 @@ Reference quirks kept:
     the conditional and the unconditional stream (image conditioning
     zeroed) as one doubled-batch U-Net call.
 
+On a card, and with no tensor- or sequence-parallel axis, the DDIM steps
+replay one CUDA graph of a step (``_DDIMGraph``) instead of launching the
+U-Net op by op; elsewhere, and for a final step that captures attention
+maps, the same step runs eagerly.
+
 ``make_sharded_inference_step`` serves the same step with the U-Net
 tensor- and sequence-parallel over a mesh of processes.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -31,8 +36,52 @@ from ..models.nerf.grid import OccupancyGridState
 from ..models.nerf.renderer import render
 from ..utils.device import resolve_device
 from ..utils.losses import l2_loss, psnr, ssim
-from ..utils.profiling import span
+from ..utils.profiling import count, span
+from ..utils.tree import tree_leaves
 from .joint import JointConfig, check_batch_device, eval_sample_budget
+
+
+def ddim_graph_eligible(device: torch.device, tp_axis=None, sp_axis=None) -> bool:
+    """Whether the DDIM steps may replay a CUDA graph: on a CUDA device,
+    with no collective in the U-Net (no tensor- or sequence-parallel axis)."""
+    return device.type == "cuda" and tp_axis is None and sp_axis is None
+
+
+class _DDIMGraph:
+    """One DDIM step, ``update(latents, t, image_embeds) -> next latents``,
+    captured as a CUDA graph on static buffers and replayed step by step.
+
+    The graph reads the weights where they lie when it is captured, so it
+    serves only while ``key`` (the shapes and the identity of every weight
+    leaf) is unchanged; weights updated in place are read anew each replay."""
+
+    def __init__(self, key: Tuple, update: Callable, latents: torch.Tensor,
+                 t: torch.Tensor, image_embeds: torch.Tensor):
+        self.key = key
+        self.x, self.t, self.embeds = latents.clone(), t.clone(), image_embeds.clone()
+        # a side stream's run first, as capture needs (library workspaces,
+        # lazy initialisation); its output is dropped
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            update(self.x, self.t, self.embeds)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out = update(self.x, self.t, self.embeds)
+        count("infer.ddim_graph_captures", 1)
+
+    def load(self, latents: torch.Tensor, image_embeds: torch.Tensor) -> None:
+        """A request's initial latents and conditions into the buffers."""
+        self.x.copy_(latents)
+        self.embeds.copy_(image_embeds)
+
+    def step(self, t: torch.Tensor) -> torch.Tensor:
+        """One DDIM step at ``t`` on the latents buffer, which it returns."""
+        self.t.copy_(t)
+        self.graph.replay()
+        self.x.copy_(self.out)
+        return self.x
 
 
 def make_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
@@ -65,6 +114,14 @@ def make_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
       under guidance included) runs tensor- and sequence-parallel over; see
       ``make_sharded_inference_step``.
 
+    On a CUDA device with neither axis (``ddim_graph_eligible``) the DDIM
+    steps replay one CUDA graph of a step, kept by the returned function
+    and captured again when the batch or latent shape or a ``params["sd"]``
+    leaf (its storage, shape or dtype) changes; a final step under
+    ``capture_attn_maps`` runs eagerly.  Counters: ``infer.ddim_steps``,
+    ``infer.ddim_graph_replays`` (0 on an eager step) and
+    ``infer.ddim_graph_captures``.
+
     Returns ``step(params, grid_state, batch, generator=None, draws=None)``
     → dict with the denoised view and PSNR/SSIM/L2 against the target.
     ``draws`` may inject ``vae_eps`` [B, 4, h, w] (the reference encode's
@@ -76,6 +133,8 @@ def make_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
     ts = torch.as_tensor(scheduler.timesteps(num_steps), device=dev)
     stage_end = stage_hook or (lambda name: None)
     guided = guidance_scale != 1.0
+    graphable = ddim_graph_eligible(dev, tp_axis, sp_axis)
+    cache = {"graph": None}
 
     @torch.no_grad()
     def step(params: Dict, grid_state: OccupancyGridState, batch: Dict,
@@ -120,9 +179,11 @@ def make_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
         if guided:
             image_embeds = torch.cat([image_embeds, torch.zeros_like(image_embeds)])
 
-        def unet_eps(x, t, capture=False):
+        def update(x, t, embeds, capture=False):
+            """One DDIM step: the U-Net's noise at (x, t), then the
+            scheduler's x_t → x_{t−Δ}; → (next latents, maps or None)."""
             res = sd_forward(params["sd"], torch.cat([x, x]) if guided else x, t,
-                             image_embeds, cfg.sd, compute_dtype=compute_dtype,
+                             embeds, cfg.sd, compute_dtype=compute_dtype,
                              capture_ip_attn_maps=capture, tp_axis=tp_axis,
                              sp_axis=sp_axis)
             eps, maps = res if capture else (res, None)
@@ -132,7 +193,8 @@ def make_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
                     maps = [m[: m.shape[0] // 2] for m in maps]
                 eps_cond, eps_uncond = eps.chunk(2, dim=0)
                 eps = eps_uncond + guidance_scale * (eps_cond - eps_uncond)
-            return eps, maps
+            x, _ = scheduler.step(eps, t, x, num_inference_steps=num_steps)
+            return x, maps
 
         # DDIM from pure noise
         latents = draws.get("init_latents")
@@ -142,15 +204,25 @@ def make_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
                                  "generator was")
             latents = torch.randn(reference_lt.shape, generator=generator, device=dev)
         ip_attn_maps = None
+        last = len(ts) - 1
         with span("infer.denoise"):
+            graph = None
+            if graphable and (last > 0 or not capture_attn_maps):
+                graph = ddim_graph(params, latents, image_embeds,
+                                   lambda x, t, e: update(x, t, e)[0])
+                graph.load(latents, image_embeds)
             for i, t in enumerate(ts):
                 with span("infer.ddim_step"):
-                    last = i == len(ts) - 1
-                    eps, maps = unet_eps(latents, t, capture=capture_attn_maps and last)
-                    latents, _ = scheduler.step(eps, t, latents,
-                                                num_inference_steps=num_steps)
-                if maps is not None:
-                    ip_attn_maps = maps
+                    count("infer.ddim_steps", 1)
+                    maps_now = capture_attn_maps and i == last
+                    if graph is not None and not maps_now:
+                        latents = graph.step(t)
+                        count("infer.ddim_graph_replays", 1)
+                    else:
+                        latents, maps = update(latents, t, image_embeds, capture=maps_now)
+                        count("infer.ddim_graph_replays", 0)
+                        if maps is not None:
+                            ip_attn_maps = maps
         stage_end("denoise")
 
         with span("infer.decode"):
@@ -178,6 +250,17 @@ def make_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
         stage_end("decode")
         return result
 
+    def ddim_graph(params, latents, image_embeds, update) -> _DDIMGraph:
+        """The kept graph, captured anew (the old one freed first) when
+        the shapes or a weight leaf's identity changed."""
+        key = (tuple(latents.shape), latents.dtype, tuple(image_embeds.shape),
+               image_embeds.dtype,
+               tuple((x.data_ptr(), tuple(x.shape), x.dtype) for x in tree_leaves(params["sd"])))
+        if cache["graph"] is None or cache["graph"].key != key:
+            cache["graph"] = None
+            cache["graph"] = _DDIMGraph(key, update, latents, ts[0], image_embeds)
+        return cache["graph"]
+
     return step
 
 
@@ -201,7 +284,9 @@ def make_sharded_inference_step(cfg: JointConfig, scheduler: DDIMScheduler,
     mesh calls ``fn`` with the same batch and draws or a generator of the
     same state: the generator is not folded with the rank (JAX's key is
     replicated), so every rank draws the same noise and returns the same
-    ``denoised_image``.  Runs on the mesh's device."""
+    ``denoised_image``.  Runs on the mesh's device; at tp = sp = 1 (no
+    collective) the DDIM steps replay a CUDA graph on a card, as the
+    unsharded step's do."""
     from ..parallel.sp import serving_param_specs
     from ..parallel.tp import axis_block
     from ..utils.tree import tree_map

@@ -347,6 +347,170 @@ def test_inference_step_on_card_matches_cpu(cuda):
         assert err <= 1e-3 * scale, (k, err, scale)
 
 
+GRAPH_STEPS = 3
+
+
+def _tiny_serving(cuda):
+    """test_inference_step_on_card_matches_cpu's tiny configuration on the
+    card: (cfg, params, grid, two requests of 2 scenes each, as (batch,
+    draws) pairs with other scenes and draws)."""
+    from stable_nerf_tpu_torch.config import NeRFConfig, SDConfig, TrainConfig
+    from stable_nerf_tpu_torch.data.rays import get_rays, rand_poses
+    from stable_nerf_tpu_torch.models.diffusion.sd_network import (
+        SDNetworkConfig, init_ip_from_unet, sd_network_init)
+    from stable_nerf_tpu_torch.models.diffusion.unet import tiny_unet_config
+    from stable_nerf_tpu_torch.models.diffusion.vae import VAEConfig
+    from stable_nerf_tpu_torch.models.nerf.grid import grid_init
+    from stable_nerf_tpu_torch.models.nerf.network import nerf_init
+    from stable_nerf_tpu_torch.training.joint import JointConfig
+    from stable_nerf_tpu_torch.utils.device import disable_tf32
+    from stable_nerf_tpu_torch.utils.tree import tree_map
+
+    disable_tf32()
+    cfg = JointConfig(
+        nerf=NeRFConfig(channel_dim=4, grid_size=32,
+                        encoding_sigma=HashGridConfig(n_levels=4, log2_hashmap_size=12,
+                                                      base_resolution=4)),
+        sd=SDNetworkConfig(
+            sd=SDConfig(cross_attention_dim=48, latent_size=16, image_size=32),
+            unet=tiny_unet_config(),
+            vae=VAEConfig(block_out_channels=(16, 32), layers_per_block=1,
+                          norm_groups=8)),
+        train=TrainConfig(max_steps_eval=64, sample_budget_eval_per_ray=8))
+    g = torch.Generator().manual_seed(4)
+    params = {"sd": init_ip_from_unet(sd_network_init(0, cfg.sd, device="cpu")),
+              "nerf": nerf_init(1, cfg.nerf, device="cpu")}
+    params["nerf"]["hash"]["table"].mul_(1e4)
+    grid = grid_init(cfg.nerf, device="cpu")
+    grid = grid._replace(occ=torch.rand(grid.occ.shape, generator=g) < 0.4)
+    intr = (16.0, 16.0, 8.0, 8.0)
+    requests = []
+    for _ in range(2):
+        rt = get_rays(rand_poses(g, 2, radius=2.0), intr, 16, 16)
+        rr = get_rays(rand_poses(g, 2, radius=2.0), intr, 16, 16)
+        batch = {"target_image": torch.rand((2, 3, 32, 32), generator=g) * 2 - 1,
+                 "reference_image": torch.rand((2, 3, 32, 32), generator=g) * 2 - 1,
+                 "target_rays_o": rt["rays_o"], "target_rays_d": rt["rays_d"],
+                 "reference_rays_o": rr["rays_o"], "reference_rays_d": rr["rays_d"]}
+        draws = {"vae_eps": torch.randn((2, 4, 16, 16), generator=g),
+                 "init_latents": torch.randn((2, 4, 16, 16), generator=g)}
+        requests.append(({k: v.to(cuda) for k, v in batch.items()},
+                         {k: v.to(cuda) for k, v in draws.items()}))
+    return (cfg, tree_map(lambda x: x.to(cuda), params),
+            type(grid)(*(t.to(cuda) for t in grid)), requests)
+
+
+def _card_step(cfg, cuda, monkeypatch, graph: bool, **kw):
+    """The tiny inference step on the card, on the DDIM graph's path or,
+    with ``graph`` False, on the eager loop."""
+    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+    from stable_nerf_tpu_torch.training import inference
+
+    with monkeypatch.context() as m:
+        if not graph:
+            m.setattr(inference, "ddim_graph_eligible", lambda *a, **k: False)
+        return inference.make_inference_step(
+            cfg, DDIMScheduler.create(cfg.sd.scheduler, device=cuda), GRAPH_STEPS,
+            compute_dtype=torch.float32, device=cuda, **kw)
+
+
+def _assert_same_request(got, want, atol=1e-6):
+    assert got.keys() == want.keys()
+    for k in want:
+        if k == "ip_attn_maps":
+            assert len(got[k]) == len(want[k]) > 0
+            for a, b in zip(got[k], want[k]):
+                assert float((a - b).abs().max()) <= atol, k
+        else:
+            assert float((got[k] - want[k]).abs().max()) <= atol, k
+
+
+@pytest.mark.parametrize("guidance", [1.0, 3.0])
+def test_ddim_graph_serves_as_the_eager_loop(cuda, monkeypatch, guidance):
+    """Two requests with other scenes and draws through the graph: one
+    capture, every step a replay, each result the eager loop's within 1e-6
+    (the same kernels on the same inputs)."""
+    from stable_nerf_tpu_torch.utils import profiling
+
+    cfg, params, grid, requests = _tiny_serving(cuda)
+    graph = _card_step(cfg, cuda, monkeypatch, True, guidance_scale=guidance)
+    eager = _card_step(cfg, cuda, monkeypatch, False, guidance_scale=guidance)
+    profiling.reset_spans()
+    with profiling.tracing():
+        got = [graph(params, grid, b, draws=d) for b, d in requests]
+    counts = profiling.counters()
+    profiling.reset_spans()
+    assert counts["infer.ddim_graph_captures"] == 1
+    assert counts["infer.ddim_graph_replays"] == counts["infer.ddim_steps"] == 2 * GRAPH_STEPS
+    for (b, d), out in zip(requests, got):
+        _assert_same_request(out, eager(params, grid, b, draws=d))
+
+
+def test_ddim_graph_is_captured_again_for_a_new_weight_leaf(cuda, monkeypatch):
+    from stable_nerf_tpu_torch.utils import profiling
+
+    cfg, params, grid, requests = _tiny_serving(cuda)
+    graph = _card_step(cfg, cuda, monkeypatch, True)
+    eager = _card_step(cfg, cuda, monkeypatch, False)
+    b, d = requests[0]
+    before = graph(params, grid, b, draws=d)["denoised_image"]
+    unet = dict(params["sd"]["unet"])
+    unet["conv_out"] = {**unet["conv_out"], "bias": unet["conv_out"]["bias"] + 0.5}
+    swapped = {**params, "sd": {**params["sd"], "unet": unet}}
+    profiling.reset_spans()
+    with profiling.tracing():
+        got = graph(swapped, grid, b, draws=d)
+    counts = profiling.counters()
+    profiling.reset_spans()
+    assert counts["infer.ddim_graph_captures"] == 1
+    assert counts["infer.ddim_graph_replays"] == GRAPH_STEPS
+    _assert_same_request(got, eager(swapped, grid, b, draws=d))
+    assert float((got["denoised_image"] - before).abs().max()) > 1e-3
+
+
+def test_ddim_graph_replays_show_in_the_profilers_trace(cuda, monkeypatch, tmp_path):
+    """The device trace of a request sees the replayed kernels, as it sees
+    the eager loop's: device_idle.serve and the breakdown read it."""
+    from stable_nerf_tpu_torch.utils.profiling import (chrome_trace_intervals, device_time,
+                                                       trace)
+
+    cfg, params, grid, requests = _tiny_serving(cuda)
+    b, d = requests[0]
+    steps = {"graph": _card_step(cfg, cuda, monkeypatch, True),
+             "eager": _card_step(cfg, cuda, monkeypatch, False)}
+    seen = {}
+    for name, step in steps.items():
+        step(params, grid, b, draws=d)              # the graph is captured here
+        torch.cuda.synchronize()
+        with trace(str(tmp_path), name):
+            step(params, grid, b, draws=d)
+            torch.cuda.synchronize()
+        seen[name] = device_time(chrome_trace_intervals(str(tmp_path / f"{name}.json")))
+    print("device operations of a traced request, graph / eager:",
+          seen["graph"]["launches"], seen["eager"]["launches"])
+    assert seen["graph"]["busy_ms"] > 0
+    assert seen["graph"]["launches"] >= 0.9 * seen["eager"]["launches"]
+
+
+def test_ddim_graph_keeps_the_attention_maps(cuda, monkeypatch):
+    """Under capture_attn_maps the final step runs eagerly: the maps and the
+    image are the eager loop's."""
+    from stable_nerf_tpu_torch.utils import profiling
+
+    cfg, params, grid, requests = _tiny_serving(cuda)
+    graph = _card_step(cfg, cuda, monkeypatch, True, capture_attn_maps=True)
+    eager = _card_step(cfg, cuda, monkeypatch, False, capture_attn_maps=True)
+    b, d = requests[1]
+    profiling.reset_spans()
+    with profiling.tracing():
+        got = graph(params, grid, b, draws=d)
+    counts = profiling.counters()
+    profiling.reset_spans()
+    assert counts["infer.ddim_graph_replays"] == GRAPH_STEPS - 1
+    assert counts["infer.ddim_steps"] == GRAPH_STEPS
+    _assert_same_request(got, eager(params, grid, b, draws=d))
+
+
 def test_device_prefetch_and_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     """Batches reach the card in order and unchanged through the pinned
     pipeline; a checkpoint of tiny card-resident params, AdamW state and

@@ -313,6 +313,26 @@ def test_reader_reads_the_span_table(monkeypatch, name):
     assert read(run) is None                                 # the CPU's table, or none
 
 
+@pytest.mark.parametrize("counts,share", [
+    ({"infer.ddim_steps": 50, "infer.ddim_graph_replays": 50}, 100.0),
+    ({"infer.ddim_steps": 50, "infer.ddim_graph_replays": 49,
+      "infer.ddim_graph_captures": 1}, 98.0),
+    ({"infer.ddim_steps": 50, "infer.ddim_graph_replays": 0}, 0.0),
+    ({"infer.ddim_steps": 50}, None),                  # a program that counts no replays
+    ({"render.samples": 400, "render.valid_samples": 100}, None),    # nor steps
+])
+def test_ddim_graph_share_reads_the_step_counters(monkeypatch, counts, share):
+    entry = [m for m in spec.benchmark()["per_layer"] if m["name"] == "ddim_graph_share.serve"]
+    assert len(entry) == 1 and entry[0]["source"] == "program_counter"
+    assert entry[0]["moves"] == "request_ms" and entry[0]["workloads"] == ["sdxl_ngp.serve"]
+    read = spec.metric_reader("ddim_graph_share.serve")
+    monkeypatch.setattr(profiling, "counters", lambda: dict(counts))
+    assert read({"trace": {"units": 1}}) == (None if share is None else pytest.approx(share))
+    assert read({"trace": None}) is None                      # an untraced run
+    monkeypatch.delattr(profiling, "span_records")
+    assert read({"trace": {"units": 1}}) is None              # a program without counters
+
+
 def test_readers_give_none_on_a_program_without_spans(monkeypatch):
     monkeypatch.delattr(profiling, "span_records")
     for name in READINGS:
