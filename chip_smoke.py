@@ -90,10 +90,6 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                weights fail by design) and scripts/run_torch_sd.py
                --sdxl-checkpoint --steps 50 (reconstruction MSE, cold and
                steady steps/s, denoised image under chiprun_out/sd_scripts);
-  bench        python bench_torch.py in a process of its own: its last
-               record, every metric finite, none skipped or failed,
-               0 < sd_denoise_mfu <= 1, device_kind this card's, and the
-               scatter kernel launched in the child;
   profile_sd   scripts/profile_torch_sd_denoise.py --steps 3: device time
                of a denoise step by bucket, idle share, analytic MFU;
   remat        the full-width step with ``UNetConfig.remat``: its losses
@@ -1785,10 +1781,6 @@ def demo(here, dev):
     return row
 
 
-BENCH_METRICS = ("nerf_train_rays_per_sec_stochastic", "nerf_eval_ms_per_image",
-                 "sd_denoise_ms_per_step", "joint_step_ms", "joint_step_full_sdxl_ms")
-
-
 def last_json(stdout, key):
     """The last line of ``stdout`` that is a JSON object holding ``key``."""
     for line in reversed(stdout.strip().splitlines()):
@@ -1800,32 +1792,6 @@ def last_json(stdout, key):
             if key in obj:
                 return obj
     return {}
-
-
-def bench(here):
-    """``python bench_torch.py`` in a process of its own, the scatter
-    kernel's launch count set to 0 before and read after; its last record.
-    The headline and every metric of BENCH_METRICS must be finite, no
-    metric skipped or failed, 0 < sd_denoise_mfu ≤ 1, device_kind this
-    card's name, and the child must have launched the kernel."""
-    import torch
-
-    torch.cuda.empty_cache()
-    run, stdout = run_cli(here, [], timeout=1200, target=os.path.join(here, "bench_torch.py"))
-    rec = last_json(stdout, "metric")
-    values = [rec.get("value")] + [rec.get(k) for k in BENCH_METRICS]
-    mfu = rec.get("sd_denoise_mfu")
-    missing = [k for k in rec if k.endswith(("_skipped", "_error"))]
-    row = {"phase": "bench", "rc": run["rc"], "s": run["s"],
-           "scatter_launches": run.get("scatter_launches"), "record": rec,
-           "skipped_or_failed": missing}
-    row["ok"] = bool(run["rc"] == 0 and rec.get("metric") == "nerf_train_rays_per_sec"
-                     and all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
-                             for v in values)
-                     and not missing and mfu is not None and 0 < mfu <= 1
-                     and rec.get("device_kind") == torch.cuda.get_device_name(0)
-                     and (run.get("scatter_launches") or 0) > 0)
-    return row
 
 
 def sd_scripts(here, ckpt_dir):
@@ -3068,11 +3034,9 @@ def main() -> int:
     demoed = with_seconds(demo, here, dev)
     emit(demoed)
     phases += [fitted, demoed]
-    benched = with_seconds(bench, here)
-    emit(benched)
     profiled = with_seconds(profile_sd, here)
     emit(profiled)
-    phases += [benched, profiled]
+    phases.append(profiled)
     # training across processes: remat, DP at world 1 on NCCL, two ranks on
     # the card over gloo (DP and FSDP), the CLI's parallel flags
     rematted = with_seconds(remat_phase, dev, cfg, joint)
@@ -3114,7 +3078,6 @@ def main() -> int:
                                  cli_row["objaverse"]["runs"]["train"].get("scatter_launches"),
                              "fit_nerf": fitted["scatter_launches"],
                              "demo": demoed["scatter_launches"],
-                             "bench": benched["scatter_launches"],
                              "remat": rematted["scatter_launches"],
                              "dp_train_world1_nccl": dp1["scatter_launches"],
                              "dp_train_per_rank": per_rank(dp_row),

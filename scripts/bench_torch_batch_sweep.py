@@ -3,8 +3,7 @@
 of scripts/bench_batch_sweep.py): runs scripts/bench_torch_joint_full_sdxl.py
 at each of ``--batches`` in a child process of its own and records ms a
 step, views/s, the U-Net MFU floor and the allocator's peak a batch in
-``BATCH_SWEEP_torch.json`` at the repository root, which bench_torch.py
-folds into its record as ``joint_batch_sweep``.
+``BATCH_SWEEP_torch.json`` at the repository root.
 
 Every batch runs without remat (U-Net remat is not ported: ROADMAP.md §1,
 ``parallel/``); a batch that does not fit the card is recorded as "OOM".
@@ -28,7 +27,7 @@ import time
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
 
-from bench_torch import BATCH_SWEEP, refuse_tpu_record  # noqa: E402
+from torch_study import BATCH_SWEEP, refuse_tpu_record  # noqa: E402
 
 
 def run_one(batch: int, timeout: int) -> dict:

@@ -2,7 +2,7 @@
 """The NeRF eval render split into cumulative stages on the card
 (counterpart of scripts/bench_eval_ablation.py).
 
-bench_torch.py's ``nerf_eval_ms_per_image`` workload: one 64² latent view
+bench.py's ``nerf_eval_ms_per_image`` workload: one 64² latent view
 (4,096 rays × 512 lattice steps) of the flagship NeRF at channel 4, the
 grid marked from the view's pose (``mark_untrained_grid``) and refreshed
 once, a budget of 64 samples a ray (64·4,096), bf16 compute, no gradient:
@@ -18,7 +18,7 @@ once, a budget of 64 samples a ray (64·4,096), bf16 compute, no gradient:
                   background blend)
 
 Times are the best of 3 blocks of 5 calls ending in a synchronize
-(``bench_torch.best_ms``): the JAX script's host readout exists for a
+(``torch_study.best_ms``): the JAX script's host readout exists for a
 remote TPU runtime, the card is timed eagerly.
 
 Usage: python scripts/bench_torch_eval_ablation.py [--device cuda]
@@ -35,7 +35,7 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from bench_torch import NERF_INTRINSICS, best_ms, device_line  # noqa: E402
+from torch_study import NERF_INTRINSICS, best_ms, device_line  # noqa: E402
 from stable_nerf_tpu_torch.config import NeRFConfig  # noqa: E402
 from stable_nerf_tpu_torch.data.rays import get_rays, rand_poses  # noqa: E402
 from stable_nerf_tpu_torch.models.nerf.grid import (grid_init, mark_untrained_grid,  # noqa: E402

@@ -13,7 +13,7 @@ XLA's plain gather; so does this one (the sorted gather kernel,
 csrc/sorted_gather.cu, serves the sorted-encode floor path instead).
 
 Times are the best of 3 blocks of 20 calls ending in a synchronize
-(``bench_torch.best_ms``), the card timed eagerly.
+(``torch_study.best_ms``), the card timed eagerly.
 
 Usage: python scripts/bench_torch_gather_by_table.py [--device cuda]
 """
@@ -29,7 +29,7 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from bench_torch import best_ms, device_line  # noqa: E402
+from torch_study import best_ms, device_line  # noqa: E402
 from stable_nerf_tpu_torch.utils.device import disable_tf32, resolve_device  # noqa: E402
 
 LOG2_TABLES = (12, 14, 16, 17, 18, 19)

@@ -28,7 +28,7 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from bench_torch import device_line  # noqa: E402
+from torch_study import device_line  # noqa: E402
 from stable_nerf_tpu_torch.config import NeRFConfig  # noqa: E402
 from stable_nerf_tpu_torch.models.nerf.grid import grid_init, update_extra_state  # noqa: E402
 from stable_nerf_tpu_torch.models.nerf.network import nerf_density, nerf_init  # noqa: E402

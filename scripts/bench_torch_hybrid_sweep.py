@@ -14,9 +14,7 @@ stochastic point this measures
   * quality: the synthetic-scene NeRF fit (scripts/fit_torch_nerf.py,
     ``--fit-steps`` steps): its FINAL mean PSNR.
 
-and writes ``HYBRID_SWEEP_torch.json`` at the repository root, which
-bench_torch.py folds into its record as ``joint_hybrid_sweep``, with the
-``hybrid_min_level_8`` row's step as ``joint_step_ms_hybrid``.  Rows merge
+and writes ``HYBRID_SWEEP_torch.json`` at the repository root.  Rows merge
 into an existing record by mode, so the two legs can run apart
 (``--skip-speed``, ``--skip-quality``).  The TPU's record,
 ``HYBRID_SWEEP.json``, is never written: ``--out`` refuses that name.  The
@@ -39,7 +37,7 @@ import time
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
 
-from bench_torch import HYBRID_SWEEP, refuse_tpu_record  # noqa: E402
+from torch_study import HYBRID_SWEEP, refuse_tpu_record  # noqa: E402
 
 
 def _name(min_level):

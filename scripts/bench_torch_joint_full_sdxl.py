@@ -140,7 +140,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from bench_torch import detect_peak_flops
+    from torch_study import detect_peak_flops
     from stable_nerf_tpu_torch.utils.device import disable_tf32, resolve_device
     from stable_nerf_tpu_torch.utils.profiling import measured_hbm_gb
 

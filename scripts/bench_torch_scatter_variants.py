@@ -25,7 +25,7 @@ Each kernel row prints its largest error against ``index_add_``,
 relative to the largest magnitude of the result.  ``--check`` runs the
 JAX script's small correctness case instead (40,000 updates into 8,192
 rows).  Times are the best of 3 blocks ending in a synchronize
-(``bench_torch.best_ms``): the JAX script's ``lax.scan`` and host readout
+(``torch_study.best_ms``): the JAX script's ``lax.scan`` and host readout
 exist for a remote TPU runtime, the card is timed eagerly.
 
 Usage: python scripts/bench_torch_scatter_variants.py [--m 33554432]
@@ -43,7 +43,7 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from bench_torch import best_ms, device_line  # noqa: E402
+from torch_study import best_ms, device_line  # noqa: E402
 from stable_nerf_tpu_torch.ops.hopper.scatter import hash_scatter_add_per_level  # noqa: E402
 from stable_nerf_tpu_torch.utils.device import disable_tf32, resolve_device  # noqa: E402
 

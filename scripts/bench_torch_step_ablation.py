@@ -2,7 +2,7 @@
 """The NeRF train render split into cumulative stages on the card
 (counterpart of scripts/bench_step_ablation.py).
 
-bench_torch.py's ``nerf_train_rays_per_sec`` workload (the flagship NeRF
+bench.py's ``nerf_train_rays_per_sec`` workload (the flagship NeRF
 at channel 4, 2 poses × 64² = 8,192 rays, 256 march steps, the 128³ grid
 all occupied, a sample budget of 2^18, bf16 compute), cut into stages so
 that the next target is read from data:
@@ -19,7 +19,7 @@ that the next target is read from data:
                    hash_scatter.cu, runs in the hash encode's backward)
 
 Times are the best of 3 blocks of 10 calls ending in a synchronize
-(``bench_torch.best_ms``): the JAX script's host readout exists for a
+(``torch_study.best_ms``): the JAX script's host readout exists for a
 remote TPU runtime, the card is timed eagerly.  The stage functions take
 their inputs (rays, per-ray jitter, grid) explicitly.
 
@@ -38,7 +38,7 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from bench_torch import NERF_INTRINSICS, best_ms, device_line  # noqa: E402
+from torch_study import NERF_INTRINSICS, best_ms, device_line  # noqa: E402
 from stable_nerf_tpu_torch.config import NeRFConfig  # noqa: E402
 from stable_nerf_tpu_torch.data.rays import get_rays, rand_poses  # noqa: E402
 from stable_nerf_tpu_torch.models.nerf.grid import grid_init  # noqa: E402

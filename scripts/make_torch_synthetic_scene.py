@@ -10,8 +10,7 @@ an exact ray-sphere intersection along the rays the training pipeline
 generates: ``data/rays.py::nerf_matrix_to_ngp`` then ``get_rays`` with the
 dataset's fixed intrinsic [138, 138, W/2, H/2] (reference dataset.py:48),
 so a perfect fit would reach infinite PSNR.  ``SPHERES`` is the one copy
-of the scene's geometry in the port (bench_torch.py's analytic occupancy
-reads it).
+of the scene's geometry in the port.
 
 The default ``--out`` lies under ``output_synthetic_scene/``, never over
 the committed ``datasets/nerf/synthetic_spheres.npz`` (the JAX script's

@@ -2,10 +2,11 @@
 """Where the time of the SDXL denoise step goes on the card: the
 PyTorch/CUDA port's counterpart of scripts/profile_sd_denoise.py.
 
-Runs bench_torch.py's denoise workload (the full SDXL U-Net with IP heads,
-batch 2, 64² latents, bf16, a ``--steps`` DDIM loop) twice untraced for the
-step time, then once more under ``torch.profiler``
-(``utils/profiling.py::trace``), and sums the device's time by bucket:
+Runs the denoise workload (the full SDXL U-Net with IP heads from seed 0,
+params in bf16, batch 2, 64² latents, a ``--steps`` DDIM loop through
+``DDIMScheduler.denoise``) twice untraced for the step time, then once
+more under ``torch.profiler`` (``utils/profiling.py::trace``), and sums
+the device's time by bucket:
 
   conv              the launching op is a convolution, or the kernel's name
                     has conv / implicit_gemm / fprop / dgrad / wgrad
@@ -32,7 +33,7 @@ kernels' intervals and wall the traced run's host clock
 (``device_idle_share_of_timed_step``: tracing slows the host, not the
 device).  ``step_ms_timed`` is the better of two untraced runs;
 ``mfu_analytic`` the analytic FLOPs a step (utils/flops.py) over it and
-the card's dense bf16 peak (bench_torch.PEAK_BF16_FLOPS).
+the card's dense bf16 peak (torch_study.PEAK_BF16_FLOPS).
 
 Usage: python scripts/profile_torch_sd_denoise.py [--steps 10] [--outdir DIR]
        python scripts/profile_torch_sd_denoise.py --reanalyze DIR
@@ -85,6 +86,31 @@ def classify(name: str, op: Optional[str] = None) -> str:
     return "other"
 
 
+def build_sd_denoise(n_steps: int):
+    """The denoise workload on the card: the full SDXL U-Net with IP heads
+    from seed 0, params in bf16, zero pooled embeds, start latents
+    [2, 4, 64, 64].  Returns denoise() → the latents after the
+    ``n_steps`` loop."""
+    import torch
+
+    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+    from stable_nerf_tpu_torch.models.diffusion.unet import sdxl_unet_config, unet_init
+    from stable_nerf_tpu_torch.utils.device import disable_tf32, resolve_device
+    from stable_nerf_tpu_torch.utils.tree import tree_map
+    from torch_study import sdxl_eps
+
+    disable_tf32()
+    dev = resolve_device()
+    cfg = sdxl_unet_config()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = tree_map(lambda x: x.to(torch.bfloat16) if x.is_floating_point() else x,
+                      unet_init(g, cfg, with_ip=True))
+    latents0 = torch.randn((2, 4, 64, 64), generator=g, device=dev)
+    scheduler = DDIMScheduler.create(device=dev)
+    eps = sdxl_eps(params, cfg, 2, dev)
+    return lambda: scheduler.denoise(eps, latents0, n_steps)
+
+
 def analyze(intervals, steps: int, wall_ms: float, step_ms: float) -> dict:
     """Bucket ``intervals`` (utils/profiling.py's tuples) a step, with the
     busy time, the idle share of the traced ``wall_ms`` and of the
@@ -130,21 +156,21 @@ def main(argv=None) -> int:
     else:
         import torch
 
-        from bench_torch import build_sd_denoise, detect_peak_flops
+        from torch_study import detect_peak_flops
 
-        _, _, denoise, _, _ = build_sd_denoise(args.steps)
-        denoise(0)                                  # warm-up
+        denoise = build_sd_denoise(args.steps)
+        denoise()                                   # warm-up
         torch.cuda.synchronize()
         times = []
         for _ in range(2):
             t0 = time.perf_counter()
-            denoise(0)
+            denoise()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3 / args.steps)
         step_ms = min(times)
         with trace(args.outdir, "sd_denoise"):
             t0 = time.perf_counter()
-            denoise(0)
+            denoise()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         kind, peak = detect_peak_flops()

@@ -158,14 +158,10 @@ def denoise(params, latents, cond, cfg: SDNetworkConfig, scheduler: DDIMSchedule
     by :func:`shard_params`; every rank passes the same latents and gets
     the same result."""
     tp_axis, sp_axis = _axes(mesh)
-    ts = torch.as_tensor(scheduler.timesteps(n_steps), device=latents.device)
-    x = latents
-    with torch.no_grad():
-        for t in ts:
-            eps = sd_forward(params, x, t, cond, cfg, compute_dtype=compute_dtype,
-                             tp_axis=tp_axis, sp_axis=sp_axis)
-            x, _ = scheduler.step(eps, t, x, num_inference_steps=n_steps)
-    return x
+    return scheduler.denoise(
+        lambda x, t: sd_forward(params, x, t, cond, cfg, compute_dtype=compute_dtype,
+                                tp_axis=tp_axis, sp_axis=sp_axis),
+        latents, n_steps)
 
 
 def launch_ranks(args, argv) -> int:

@@ -16,8 +16,8 @@ workloads (test_sd.py:23-168):
   3. the empty-prompt conditioning from the two CLIP text towers: finite,
      with a non-zero pooled embedding;
   4. a ``--steps`` DDIM denoise from pure noise with that conditioning
-     (the U-Net in bf16, through ``bench_torch.sdxl_ddim_loop``, the loop
-     the bench times), decoded: finite, and not flat (std > 0.01);
+     (the U-Net in bf16, ``torch_study.sdxl_eps`` through
+     ``DDIMScheduler.denoise``), decoded: finite, and not flat (std > 0.01);
      ``denoised.png`` (``.png.npy`` where PIL is absent).
 
 Where the JAX script stops at the first failed check, this one runs every
@@ -105,7 +105,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    from bench_torch import sdxl_ddim_loop
+    from stable_nerf_tpu_torch.models.diffusion.scheduler import DDIMScheduler
+    from torch_study import sdxl_eps
     from stable_nerf_tpu_torch.models.diffusion.unet import sdxl_unet_config
     from stable_nerf_tpu_torch.models.diffusion.vae import VAEConfig, vae_decode
     from stable_nerf_tpu_torch.models.diffusion.weights import load_sdxl
@@ -177,8 +178,8 @@ def main(argv=None) -> int:
         unet = to_dev(params.pop("unet"), torch.bfloat16)
         latents = torch.randn((B, 4, H, H), generator=g, device=dev)
         print(f"{args.steps}-step DDIM denoise …")
-        _, denoise, _ = sdxl_ddim_loop(unet, unet_cfg, B, args.steps, dev, pooled=pooled[:B])
-        final = denoise(latents)
+        final = DDIMScheduler.create(device=dev).denoise(
+            sdxl_eps(unet, unet_cfg, B, dev, pooled=pooled[:B]), latents, args.steps)
         del unet
         with torch.no_grad():
             image = vae_decode(vae, final, vae_cfg)

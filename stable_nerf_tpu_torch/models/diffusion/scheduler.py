@@ -107,3 +107,18 @@ class DDIMScheduler(NamedTuple):
                 raise ValueError("eta > 0 requires noise")
             prev_sample = prev_sample + std * noise
         return prev_sample, pred_x0
+
+    def denoise(self, eps_fn, latents, num_inference_steps: int) -> torch.Tensor:
+        """The eager eta-0 DDIM loop: from ``latents``, one :meth:`step` on
+        ``eps_fn(x, t)`` for each of ``timesteps(num_inference_steps)``,
+        without grad; returns the last latents.  The scripts' one loop.
+        The served request (training/inference.py) keeps its own: its steps
+        replay a CUDA graph, carry per-step spans and counters, and its
+        last step may capture the attention maps."""
+        n = num_inference_steps
+        ts = torch.as_tensor(self.timesteps(n), device=latents.device)
+        x = latents
+        with torch.no_grad():
+            for t in ts:
+                x, _ = self.step(eps_fn(x, t), t, x, num_inference_steps=n)
+        return x

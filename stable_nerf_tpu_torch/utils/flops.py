@@ -4,7 +4,8 @@ stable_nerf_tpu/utils/flops.py).
 The count walks the ``UNetConfig`` the way ``unet_apply`` does and counts
 a multiply-add of a convolution or a matrix product as 2 FLOPs, the
 convention in which the card's peak rates are quoted.  It is the
-numerator of ``sd_denoise_mfu`` in bench_torch.py.
+numerator of the MFU that scripts/profile_torch_sd_denoise.py
+(``mfu_analytic``) and scripts/bench_torch_joint_full_sdxl.py report.
 
 Counted: every conv2d (K·K·Cin·Cout·H·W·2), every linear, the attention
 score and value products (2·S·S_kv·D·heads·2 a layer) and the time and

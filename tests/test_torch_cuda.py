@@ -776,49 +776,6 @@ def test_fit_step_scatter_matches_plain(cuda):
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
 
 
-@pytest.fixture
-def small_bench(monkeypatch):
-    """bench_torch at a small size through its one size hook: a NeRF with
-    a 32³ grid and 4 levels of 2^12 rows, the tiny U-Net at 16² latents."""
-    import bench_torch
-    from stable_nerf_tpu_torch.config import NeRFConfig
-    from stable_nerf_tpu_torch.models.diffusion.unet import tiny_unet_config
-
-    nerf = NeRFConfig(channel_dim=4, grid_size=32, encoding_sigma=HashGridConfig(
-        n_levels=4, log2_hashmap_size=12, base_resolution=4))
-    monkeypatch.setattr(bench_torch, "_sizes", lambda: (nerf, tiny_unet_config(), 16))
-    return bench_torch
-
-
-def test_bench_nerf_render_on_the_card_at_a_small_size(cuda, small_bench):
-    """bench_torch.bench_nerf_render with a small grid and table: a finite
-    rate, and 2 scatter launches a step (2^18 samples in chunks of 2^17)."""
-    import math
-
-    rays_per_sec, dt, launches = small_bench.bench_nerf_render()
-    assert math.isfinite(rays_per_sec) and rays_per_sec > 0 and dt > 0
-    assert launches == 2
-
-
-def test_bench_sd_denoise_on_the_card_at_a_small_size(cuda, small_bench):
-    """bench_torch.bench_sd_denoise with the tiny U-Net at 16² latents and
-    2 DDIM steps: finite times, the card's name, the analytic count, and
-    FlopCounterMode's count of the same forward within 1% of it (norms,
-    softmax and pointwise work go uncounted in both)."""
-    import math
-
-    from stable_nerf_tpu_torch.models.diffusion.unet import tiny_unet_config
-    from stable_nerf_tpu_torch.utils.flops import unet_forward_flops
-
-    (sps, ms, mfu, kind, peak, flops, counted, (hkind, hgb)) = small_bench.bench_sd_denoise(
-        n_steps=2, batch=2)
-    assert math.isfinite(sps) and ms > 0 and kind == torch.cuda.get_device_name(0)
-    assert flops == unet_forward_flops(tiny_unet_config(), 2, 16)
-    assert abs(counted - flops) <= 0.01 * flops
-    assert hkind == "allocator_peak" and hgb > 0
-    assert mfu is None if peak is None else 0 < mfu <= 1
-
-
 def test_profiling_helpers_read_the_cards_kernels(cuda, tmp_path):
     """utils/profiling.py on a short run: the Chrome trace that ``trace``
     writes gives every kernel, linked to its op (a product may launch more

@@ -1,8 +1,9 @@
 """The port (stable_nerf_tpu_torch) stands alone: no JAX, nothing of the JAX
 package, none of ``safetensors``, ``transformers`` or PIL (the card's
 machine has none of them) and no pre-port script, in the package,
-chip_smoke.py, bench_torch.py and the port's scripts; entry points that refuse to fall back to the CPU, and a chip
-smoke script that fails without a card or without the package."""
+chip_smoke.py and the port's scripts; entry points that refuse to fall
+back to the CPU, and a chip smoke script that fails without a card or
+without the package."""
 
 import os
 import shutil
@@ -22,9 +23,9 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 chip_smoke.load_floor_script()      # scripts/bench_torch_fused_render_floor.py
-import bench_torch
-for script in ("fit_torch_nerf", "pretrain_torch_tiny_vae", "fit_torch_latent_ceiling",
-               "bench_torch_joint_full_sdxl", "profile_torch_sd_denoise", "run_torch_sd",
+for script in ("torch_study", "fit_torch_nerf", "pretrain_torch_tiny_vae",
+               "fit_torch_latent_ceiling", "bench_torch_joint_full_sdxl",
+               "profile_torch_sd_denoise", "run_torch_sd",
                "validate_torch_sdxl_checkpoint", "bench_torch_batch_sweep",
                "bench_torch_hybrid_sweep", "bench_torch_scatter_variants",
                "bench_torch_step_ablation", "bench_torch_eval_ablation",
@@ -102,7 +103,6 @@ def _entry_points():
     from stable_nerf_tpu_torch.models.nerf.tiny import tiny_nerf_init
     from stable_nerf_tpu_torch.parallel import make_mesh, make_mesh_2d
     from stable_nerf_tpu_torch.training.inference import make_sharded_inference_step
-    import bench_torch
     import chip_smoke
 
     return {
@@ -125,8 +125,6 @@ def _entry_points():
                                                           "vae.npz")),
         "error_map_init": lambda: error_map_init(4),
         "tiny_nerf_init": lambda: tiny_nerf_init(0, TinyNeRFConfig()),
-        "bench_nerf_render": lambda: bench_torch.bench_nerf_render(),
-        "bench_sd_denoise": lambda: bench_torch.bench_sd_denoise(),
         "bench_joint_full_sdxl_script": lambda: chip_smoke.load_script(
             "bench_torch_joint_full_sdxl").main([]),
         "profile_sd_denoise_script": lambda: chip_smoke.load_script(
@@ -159,7 +157,6 @@ def _entry_points():
                                   "build_initial_params", "device_prefetch", "cli",
                                   "load_sdxl", "clip_text_init", "clip_vision_init",
                                   "vae_load_npz", "error_map_init", "tiny_nerf_init",
-                                  "bench_nerf_render", "bench_sd_denoise",
                                   "bench_joint_full_sdxl_script", "profile_sd_denoise_script",
                                   "run_sd_script", "validate_script", "make_mesh",
                                   "train_data_parallel", "cli_data_parallel",

@@ -516,16 +516,6 @@ def test_synthetic_scene_against_the_committed_file(scripts):
     assert differ == 65188, differ
 
 
-def test_bench_torch_reads_the_scene_script_spheres(scripts):
-    """bench_torch.py's analytic occupancy uses the scene script's spheres
-    (one copy in the port), equal to the JAX script's."""
-    import bench_torch
-
-    got = [(c.tolist(), r) for c, r, _ in bench_torch.scene_spheres()]
-    assert got == [(c.tolist(), r) for c, r, _ in scripts["make_torch_synthetic_scene"].SPHERES]
-    assert got == [(c.tolist(), r) for c, r, _ in _script("make_synthetic_scene").SPHERES]
-
-
 def test_weights_drill_at_tiny_size_is_bit_identical(scripts, tmp_path, monkeypatch, capsys):
     from stable_nerf_tpu_torch.models.diffusion import weights as tw
     from stable_nerf_tpu_torch.models.diffusion.unet import tiny_unet_config

@@ -7,6 +7,11 @@ the CPU, against the JAX package at the tiny size.
   ``sd_forward`` and the DDIM step).  Tolerance 1e-4 of the latents'
   largest magnitude: float32 sums in other orders through three U-Net
   passes.
+* The validator's and the denoise profile's SDXL loop
+  (``torch_study.sdxl_eps`` through ``DDIMScheduler.denoise``) on the tiny
+  U-Net at float32, batches 1 and 2, pooled embeds zero and drawn,
+  against the inline JAX loop of bench.py and validate_sdxl_checkpoint.py;
+  1e-5 of the latents' largest magnitude.
 * The VAE round trips of both scripts with JAX's own normal draw injected:
   the latent's statistics, the reconstruction's MSE and PSNR.  Tolerance
   3e-5 of the latent's largest magnitude (XLA's float32 VAE strays ~2e-5
@@ -38,6 +43,7 @@ import chip_smoke
 from stable_nerf_tpu.config import SDConfig as JSDConfig
 from stable_nerf_tpu.models.diffusion import DDIMScheduler as JDDIMScheduler
 from stable_nerf_tpu.models.diffusion import sd_network as jsd
+from stable_nerf_tpu.models.diffusion import unet as junet
 from stable_nerf_tpu.models.diffusion import vae as jvae
 from stable_nerf_tpu.models.diffusion.unet import tiny_unet_config as jtiny_unet
 from stable_nerf_tpu.utils.losses import psnr as jpsnr
@@ -124,6 +130,51 @@ def test_denoise_body_equals_run_sd(run_sd, tiny):
 
     want = denoise_local(jparams, jnp.asarray(latents))
     _scale_close(got.numpy(), want, 1e-4)
+
+
+@pytest.mark.parametrize("pooled", ["zeros", "drawn"])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_sdxl_denoise_equals_jax(batch, pooled):
+    """The validator's and the denoise profile's SDXL loop
+    (``torch_study.sdxl_eps`` through ``DDIMScheduler.denoise``: zero IP
+    tokens, the pooled embeds or zeros, the SDXL time ids at 1024) on the
+    tiny U-Net with IP heads, 3 DDIM steps at float32, against the loop of
+    bench.py and validate_sdxl_checkpoint.py (a jitted ``lax.scan`` of
+    ``unet_apply`` and the DDIM step) from the converted params.
+    Tolerance 1e-5 of the latents' largest magnitude: float32 sums in
+    other orders through three U-Net passes (at most 3.4e-7 measured)."""
+    study = _script("torch_study")
+    cfg, jcfg, n_steps = tiny_unet_config(), jtiny_unet(), 3
+    params = unet_init(torch.Generator().manual_seed(3), cfg, with_ip=True)
+    g = np.random.default_rng(batch)
+    latents = g.standard_normal((batch, 4, 16, 16)).astype(np.float32)
+    embeds = (np.zeros((batch, cfg.pooled_projection_dim), np.float32) if pooled == "zeros"
+              else g.standard_normal((batch, cfg.pooled_projection_dim)).astype(np.float32))
+
+    eps = study.sdxl_eps(params, cfg, batch, "cpu",
+                         pooled=None if pooled == "zeros" else torch.from_numpy(embeds),
+                         compute_dtype=torch.float32)
+    got = DDIMScheduler.create(device="cpu").denoise(eps, torch.from_numpy(latents), n_steps)
+
+    scheduler = JDDIMScheduler.create()
+    ip_tokens = jnp.zeros((batch, 4, jcfg.cross_attention_dim), jnp.float32)
+    time_ids = jnp.broadcast_to(
+        jnp.asarray([[1024.0, 1024.0, 0.0, 0.0, 1024.0, 1024.0]]), (batch, 6))
+    ts = jnp.asarray(scheduler.timesteps(n_steps))
+
+    @jax.jit
+    def denoise(params, pooled, latents):
+        def body(x, t):
+            eps = junet.unet_apply(params, x, t, ip_tokens, added_text_embeds=pooled,
+                                   added_time_ids=time_ids, cfg=jcfg,
+                                   compute_dtype=jnp.float32)
+            x, _ = scheduler.step(eps, t, x, num_inference_steps=n_steps)
+            return x, None
+        out, _ = jax.lax.scan(body, latents, ts)
+        return out
+
+    want = denoise(convert.params_to_jax(params), jnp.asarray(embeds), jnp.asarray(latents))
+    _scale_close(got.numpy(), want, 1e-5)
 
 
 def test_run_sd_vae_round_trip_stats_equal_jax(run_sd, tiny):
