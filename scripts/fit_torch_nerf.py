@@ -43,10 +43,12 @@ from stable_nerf_tpu_torch.models.nerf.grid import (grid_init,  # noqa: E402
 from stable_nerf_tpu_torch.models.nerf.network import nerf_density, nerf_init  # noqa: E402
 from stable_nerf_tpu_torch.models.nerf.renderer import render  # noqa: E402
 from stable_nerf_tpu_torch.ops.compaction import suggest_sample_budget  # noqa: E402
+from stable_nerf_tpu_torch.training.fit_graph import (fit_graph_eligible,  # noqa: E402
+                                                      fit_graph_key, graph_step)
 from stable_nerf_tpu_torch.training.joint import lr_factor  # noqa: E402
 from stable_nerf_tpu_torch.utils.device import disable_tf32, resolve_device  # noqa: E402
 from stable_nerf_tpu_torch.utils.losses import psnr  # noqa: E402
-from stable_nerf_tpu_torch.utils.profiling import span  # noqa: E402
+from stable_nerf_tpu_torch.utils.profiling import count, span  # noqa: E402
 from stable_nerf_tpu_torch.utils.tree import tree_leaves  # noqa: E402
 from stable_nerf_tpu_torch.utils.visualization import save_image  # noqa: E402
 
@@ -131,11 +133,19 @@ def load_views(args, device: torch.device) -> Dict:
 def make_optimizer(params: Dict, lr: float, steps: int, decay: float):
     """Adam over every NeRF leaf, as optax.adam(b1 0.9, b2 0.99, eps 1e-15)
     with ``exponential_decay(lr, steps, decay)`` (or a constant lr when
-    ``decay`` is 1); returns (optimizer, LambdaLR or None)."""
+    ``decay`` is 1); returns (optimizer, LambdaLR or None).  On a card the
+    Adam is ``capturable`` with its lr a 0-d tensor there, which the
+    schedule fills in place, so ``train_step`` can replay it in a CUDA
+    graph."""
     leaves = tree_leaves(params)
     for x in leaves:
         x.requires_grad_(True)
-    opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.99), eps=1e-15)
+    dev = leaves[0].device
+    if dev.type == "cuda":
+        opt = torch.optim.Adam(leaves, lr=torch.tensor(lr, device=dev), betas=(0.9, 0.99),
+                               eps=1e-15, capturable=True)
+    else:
+        opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.99), eps=1e-15)
     if decay >= 1.0:
         return opt, None
     factor = lr_factor(TrainConfig(lr_schedule="exponential", lr_decay_steps=steps,
@@ -161,13 +171,31 @@ def train_step(params: Dict, opt, sched, state, pool: Dict, cfg: NeRFConfig,
     """One Adam step on the rays ``idx`` of the pool (``pool_o``,
     ``pool_d``, ``pool_gt``), t0 jittered by ``perturb`` [rays] in [0, 1),
     the MLPs computing in ``compute_dtype`` (bf16, as the JAX script
-    trains); returns the ``loss`` ("mse" or "l1"), not synchronised.  Spans
-    (``utils/profiling.py``): ``fit.step``, and in it ``fit.backward`` and
-    ``fit.optimizer``."""
-    with span("fit.step"):
+    trains); returns the ``loss`` ("mse" or "l1"), a tensor of its own,
+    not synchronised.
+
+    Where ``fit_graph_eligible`` allows (every tensor on one card, the
+    capturable Adam ``make_optimizer`` builds there, a dense step, the
+    scatter backward) the step replays one CUDA graph kept for ``opt``
+    (``training/fit_graph.py``), with ``idx``, ``perturb`` and the grid's
+    ``occ`` copied into its buffers; it is captured at the first such call
+    and again when ``fit_graph_key`` changes: the config, the ray count,
+    ``max_steps``, ``bg``, ``loss``, ``compute_dtype``, a weight or pool
+    tensor's storage, shape or dtype, or the optimizer's state.  A new
+    grid state is no new key.  Elsewhere (the CPU, another optimizer, a
+    sample budget) the step runs eagerly.  The schedule steps outside
+    the graph.
+
+    Spans and counters (``utils/profiling.py``): ``fit.step``, and in it,
+    in an eager step only, ``fit.backward`` and ``fit.optimizer``;
+    ``fit.steps`` and ``training/fit_graph.py``'s ``fit.graph_replays``
+    and ``fit.graph_captures``."""
+
+    def step(occ, idx, perturb):
         o, d, gt = pool["pool_o"][idx], pool["pool_d"][idx], pool["pool_gt"][idx]
-        out = render(params, state, o[None], d[None], cfg, bg_color=bg, max_steps=max_steps,
-                     perturb=perturb, compute_dtype=compute_dtype, sample_budget=budget)
+        out = render(params, state._replace(occ=occ), o[None], d[None], cfg, bg_color=bg,
+                     max_steps=max_steps, perturb=perturb, compute_dtype=compute_dtype,
+                     sample_budget=budget)
         err = out["image"][0] - gt
         value = (err ** 2).mean() if loss == "mse" else err.abs().mean()
         opt.zero_grad(set_to_none=True)
@@ -175,9 +203,22 @@ def train_step(params: Dict, opt, sched, state, pool: Dict, cfg: NeRFConfig,
             value.backward()
         with span("fit.optimizer"):
             opt.step()
-            if sched is not None:
-                sched.step()
         return value.detach()
+
+    with span("fit.step"):
+        count("fit.steps", 1)
+        inputs = (state.occ, idx, perturb)
+        tensors = [*tree_leaves(params), pool["pool_o"], pool["pool_d"], pool["pool_gt"]]
+        if fit_graph_eligible(opt, budget, cfg.hash_custom_bwd, tensors + list(inputs)):
+            settings = (cfg, max_steps, bg, loss, compute_dtype)
+            value = graph_step(opt, lambda: fit_graph_key(opt, settings, tensors, inputs),
+                               step, inputs)
+        else:
+            count("fit.graph_replays", 0)
+            value = step(*inputs)
+        if sched is not None:
+            sched.step()
+        return value
 
 
 @torch.no_grad()

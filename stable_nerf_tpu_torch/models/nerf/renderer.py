@@ -24,6 +24,7 @@ from ...ops.compaction import compact_plan, gather_compact, scatter_back
 from ...ops.composite import composite_rays
 from ...ops.marching import march_rays_lattice
 from ...ops.ray_ops import near_far_from_aabb
+from ...utils.device import device_constant
 from ...utils.profiling import count, span, spans_enabled
 from .grid import OccupancyGridState
 from .network import nerf_apply
@@ -69,7 +70,7 @@ def render(params: Dict, grid_state: OccupancyGridState, rays_o, rays_d,
     N = o.shape[0]
     b = cfg.bound
     with span("nerf.march"):
-        aabb = torch.tensor([-b, -b, -b, b, b, b], dtype=torch.float32, device=o.device)
+        aabb = device_constant((-b, -b, -b, b, b, b), o.device)
         nears, fars = near_far_from_aabb(o, d, aabb, cfg.min_near)
         pos, ts, dt, valid, t0 = march_rays_lattice(
             o, d, nears, fars, grid_state.occ, bound=cfg.bound, cascade=cfg.cascade,
@@ -104,7 +105,8 @@ def render(params: Dict, grid_state: OccupancyGridState, rays_o, rays_d,
         rgbs = rgb.reshape(N, K, cfg.channel_dim)
         weights_sum, depth, image = composite_rays(sigmas, rgbs, dt, ts, t0, valid,
                                                    t_thresh)
-        bg = torch.as_tensor(bg_color, dtype=torch.float32, device=o.device)
+        bg = (torch.as_tensor(bg_color, dtype=torch.float32, device=o.device)
+              if torch.is_tensor(bg_color) else device_constant(bg_color, o.device))
         image = image + (1.0 - weights_sum)[:, None] * bg
         extent = fars - nears
         depth = torch.where(extent > 0,

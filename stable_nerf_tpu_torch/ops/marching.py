@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from ..utils.device import device_constant
+
 SQRT3 = math.sqrt(3.0)
 
 
@@ -68,7 +70,7 @@ def march_rays_lattice(rays_o, rays_d, nears, fars, occ_grid, *, bound: float,
     """
     K = n_samples if n_samples is not None else max_steps
     dev = rays_o.device
-    dt = torch.tensor(2.0 * SQRT3 / max_steps, dtype=torch.float32, device=dev)
+    dt = device_constant(2.0 * SQRT3 / max_steps, dev)
     t0 = nears if noise is None else nears + dt * noise
     ks = torch.arange(K, dtype=torch.float32, device=dev)
     ts = t0[:, None] + ks[None, :] * dt
@@ -105,9 +107,8 @@ def march_rays_iterative(rays_o, rays_d, nears, fars, occ_grid, *, bound: float,
     H = grid_size
     o, d = rays_o.float(), rays_d.float()
     N, dev = o.shape[0], o.device
-    dt_min = torch.tensor(2.0 * SQRT3 / max_steps, dtype=torch.float32, device=dev)
-    dt_max = torch.tensor(2.0 * SQRT3 * 2 ** (cascade - 1) / H, dtype=torch.float32,
-                          device=dev)
+    dt_min = device_constant(2.0 * SQRT3 / max_steps, dev)
+    dt_max = device_constant(2.0 * SQRT3 * 2 ** (cascade - 1) / H, dev)
     occ_flat = occ_grid.reshape(-1)
     n_iter = iter_max if iter_max is not None else max_steps + 4 * H * cascade
     if noise is None:

@@ -2,9 +2,11 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
+
+_CONSTANTS: Dict = {}
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -26,3 +28,16 @@ def disable_tf32() -> None:
     float32, so both switches are turned off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def device_constant(values: Union[float, Sequence[float]], device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=torch.float32, device=device)``, made
+    once per (values, device) and kept.  A tensor made from Python numbers
+    on a card is copied from pageable memory, which waits for the stream,
+    and cannot be made while a CUDA graph is being captured; the kept one
+    is made at its first use.  Callers must not write to it."""
+    key = (tuple(values) if isinstance(values, (list, tuple)) else values, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(values, dtype=torch.float32, device=device)
+    return t

@@ -253,8 +253,12 @@ def span(name: str):
 def count(name: str, n) -> None:
     """Add ``n`` (a host int, or a 0-d device tensor, which accumulates on
     the device without a read) to the counter ``name``; nothing while
-    spans are off."""
+    spans are off, and no device tensor while a CUDA graph is captured
+    (the graph would add into the counter's memory at every replay, after
+    ``reset_spans`` too)."""
     if not (_forced or _profiler_enabled()):
+        return
+    if torch.is_tensor(n) and n.is_cuda and torch.cuda.is_current_stream_capturing():
         return
     tracer = _TRACER
     with tracer.lock:

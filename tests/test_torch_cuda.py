@@ -18,7 +18,10 @@ kernel only rounds and moves values: bit for bit.  The tiny inference
 step on the card against the CPU: 1e-3 of each key's scale (float32 sums
 in other orders through three U-Net passes and the VAE decode).  The demo
 VAE artifact loads onto the card bit for bit; a fit step's loss on the
-card within 1e-4 of the CPU's.
+card within 1e-4 of the CPU's, and twenty fit steps replayed from the
+step's CUDA graph against twenty eager ones to the same 1e-4 and, on each
+leaf's total update, the CPU fit's 5e-3 of its norm (with an Adam eps at
+which K1's run-to-run rounding does not move the table; see _fit_run).
 """
 
 import pytest
@@ -722,7 +725,10 @@ def test_fit_step_scatter_matches_plain(cuda):
     """One step of scripts/fit_torch_nerf.py on the card at 32² (512 rays,
     64 march steps: one chunk): the scatter the encode's backward launches,
     its inputs captured, against the plain version on the same inputs; the
-    step's loss (float32 compute) within 1e-4 of the same step on the CPU."""
+    step's loss (float32 compute) within 1e-4 of the same step on the CPU.
+    On the card the step's first call runs it and then captures it for
+    the fit step's CUDA graph: the wrapper launches once in each, and the
+    inputs checked are the run's."""
     import chip_smoke
     from stable_nerf_tpu_torch.models.nerf.network import nerf_init
     from stable_nerf_tpu_torch.utils.device import disable_tf32
@@ -766,7 +772,7 @@ def test_fit_step_scatter_matches_plain(cuda):
         finally:
             encoding.hash_scatter_add_per_level = wrapper
         if dev.type == "cuda":
-            assert hash_scatter_add_per_level.launches == before + 1
+            assert hash_scatter_add_per_level.launches == before + 2
     idx, upd, a, kw, out = captured[0]
     assert idx.is_cuda and tuple(idx.shape) == (512 * 64, 16, 8)
     plain = hash_scatter_add_plain(idx, upd, a[0] * a[1], False)
@@ -774,6 +780,107 @@ def test_fit_step_scatter_matches_plain(cuda):
                                                upd.reshape(-1, 2).abs())
     assert float(((out - plain).abs() / scale.clamp_min(1e-30)).max()) <= 1e-5
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+
+
+FIT_GRAPH_STEPS = 20
+
+
+def _fit_run(cuda, monkeypatch, graph: bool, compute_dtype, stochastic_until: int = 0):
+    """FIT_GRAPH_STEPS steps of scripts/fit_torch_nerf.py at 32² (512 rays,
+    64 march steps), the grid refreshed every 16 steps, through the fit
+    step's CUDA graph or eagerly, from weights, grid and draws that are
+    the same in every run: (losses as returned, leaves at the start, at
+    the end, counters, the optimizer).  The fit's Adam with eps 1e-8 in
+    place of 1e-15: K1 sums in f32 atomics whose order changes from run
+    to run, and at 1e-15 a table entry whose gradient is that rounding
+    noise moves by ~lr either way (measured: a graphed and an eager run's
+    table updates 9-15 apart in norms of 38-78 over 20 steps, their
+    losses within 1e-4), at 1e-8 by a ten-thousandth of it."""
+    import chip_smoke
+    from stable_nerf_tpu_torch.models.nerf.network import nerf_init
+    from stable_nerf_tpu_torch.utils import profiling
+    from stable_nerf_tpu_torch.utils.device import disable_tf32
+    from stable_nerf_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    disable_tf32()
+    fit = chip_smoke.load_script("fit_torch_nerf")
+    monkeypatch.setattr(fit, "fit_graph_eligible",
+                        fit.fit_graph_eligible if graph else (lambda *a, **k: False))
+    args = fit.build_parser().parse_args(["--size", "32", "--rays-per-batch", "512",
+                                          "--max-steps", "64", "--grid-size", "32",
+                                          "--steps", str(FIT_GRAPH_STEPS),
+                                          "--stochastic-until", str(stochastic_until)])
+    cfg = fit.nerf_config(args)
+    warm = fit.warmup_config(cfg, args)
+    views = fit.load_views(args, cuda)
+    params = tree_map(lambda x: x.to(cuda), nerf_init(0, cfg, device="cpu"))
+    state = fit.init_state(cfg, views, cuda)
+    opt, sched = fit.make_optimizer(params, args.lr, args.steps, args.lr_decay)
+    opt.param_groups[0]["eps"] = 1e-8
+    start = [x.detach().clone() for x in tree_leaves(params)]
+    g, grid_g = torch.Generator().manual_seed(2), torch.Generator(device=cuda).manual_seed(3)
+    n_pool = views["pool_o"].shape[0]
+    losses = []
+    profiling.reset_spans()
+    with profiling.tracing():
+        for step in range(FIT_GRAPH_STEPS):
+            if step % args.update_every == 0:
+                state = fit.refresh(state, params, cfg, generator=grid_g)
+            idx = torch.randint(0, n_pool, (512,), generator=g).to(cuda)
+            perturb = torch.rand(512, generator=g).to(cuda)
+            losses.append(fit.train_step(
+                params, opt, sched, state, views, warm if step < stochastic_until else cfg,
+                idx, perturb, bg=args.bg, max_steps=args.max_steps, loss=args.loss,
+                budget=None, compute_dtype=compute_dtype))
+        torch.cuda.synchronize()
+    counts = profiling.counters()
+    profiling.reset_spans()
+    return losses, start, [x.detach().clone() for x in tree_leaves(params)], counts, opt
+
+
+def _assert_fits_agree(graph, eager):
+    """Losses within 1e-4 relative (a card fit step against the CPU's,
+    above); each leaf's total update within 5e-3 of its norm
+    (tests/test_torch_fit.py)."""
+    g_losses, start, g_end, _, _ = graph
+    e_losses, _, e_end, _, _ = eager
+    for a, b in zip(g_losses, e_losses):
+        assert abs(float(a) - float(b)) <= 1e-4 * abs(float(b))
+    for s, a, b in zip(start, g_end, e_end):
+        scale = float((b - s).norm())
+        assert scale > 0
+        assert float(((a - s) - (b - s)).norm()) <= 5e-3 * scale
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_fit_graph_steps_as_the_eager_step(cuda, monkeypatch, compute_dtype):
+    """Twenty fit steps through the graph, a refresh at steps 0 and 16,
+    equal twenty eager steps: one capture (the first call, which runs its
+    step eagerly), 19 replays, every loss a tensor of its own, and the
+    schedule's lr written into the capturable Adam's tensor."""
+    graph = _fit_run(cuda, monkeypatch, True, compute_dtype)
+    eager = _fit_run(cuda, monkeypatch, False, compute_dtype)
+    _assert_fits_agree(graph, eager)
+    losses, _, _, counts, opt = graph
+    assert counts["fit.graph_captures"] == 1
+    assert counts["fit.graph_replays"] == FIT_GRAPH_STEPS - 1
+    assert counts["fit.steps"] == eager[3]["fit.steps"] == FIT_GRAPH_STEPS
+    assert eager[3]["fit.graph_replays"] == 0 and "fit.graph_captures" not in eager[3]
+    assert len({x.data_ptr() for x in losses}) == FIT_GRAPH_STEPS
+    lr = opt.param_groups[0]["lr"]
+    assert lr.is_cuda and opt.param_groups[0]["capturable"]
+    want = 1e-2 * 0.1 ** (FIT_GRAPH_STEPS / FIT_GRAPH_STEPS)
+    assert float(lr) == pytest.approx(want, rel=1e-5)
+
+
+def test_fit_graph_is_captured_again_for_the_exact_encode(cuda, monkeypatch):
+    """--stochastic-until 6: six one-corner steps, then the exact encode,
+    a new key: two captures, 18 replays, the same steps as eagerly."""
+    graph = _fit_run(cuda, monkeypatch, True, torch.float32, stochastic_until=6)
+    eager = _fit_run(cuda, monkeypatch, False, torch.float32, stochastic_until=6)
+    _assert_fits_agree(graph, eager)
+    assert graph[3]["fit.graph_captures"] == 2
+    assert graph[3]["fit.graph_replays"] == FIT_GRAPH_STEPS - 2
 
 
 def test_profiling_helpers_read_the_cards_kernels(cuda, tmp_path):

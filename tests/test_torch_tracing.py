@@ -333,6 +333,39 @@ def test_ddim_graph_share_reads_the_step_counters(monkeypatch, counts, share):
     assert read({"trace": {"units": 1}}) is None              # a program without counters
 
 
+@pytest.mark.parametrize("name,moves,cell", [
+    ("fit_graph_share.fit", "nerf_train_rays_per_s", "ngp_synthetic.fit"),
+    ("fit_graph_share.fit_stochastic", "nerf_train_rays_per_s.stochastic",
+     "ngp_synthetic.fit_stochastic"),
+])
+@pytest.mark.parametrize("counts,share", [
+    ({"fit.steps": 16, "fit.graph_replays": 16}, 100.0),
+    ({"fit.steps": 16, "fit.graph_replays": 15, "fit.graph_captures": 1}, 93.75),
+    ({"fit.steps": 16, "fit.graph_replays": 0}, 0.0),
+    ({"render.samples": 400, "render.valid_samples": 100}, None),    # the parent: no counters
+])
+def test_fit_graph_share_reads_the_step_counters(monkeypatch, name, moves, cell, counts, share):
+    entry = [m for m in spec.benchmark()["per_layer"] if m["name"] == name]
+    assert len(entry) == 1 and entry[0]["source"] == "program_counter"
+    assert entry[0]["layer"] == "Host dispatch"
+    assert entry[0]["moves"] == moves and entry[0]["workloads"] == [cell]
+    read = spec.metric_reader(name)
+    monkeypatch.setattr(profiling, "counters", lambda: dict(counts))
+    assert read({"trace": {"units": 16}}) == (None if share is None else pytest.approx(share))
+    assert read({"trace": None}) is None                      # an untraced run
+    monkeypatch.delattr(profiling, "span_records")
+    assert read({"trace": {"units": 16}}) is None             # a program without counters
+
+
+def test_fit_step_counts_its_steps_and_no_replay_on_the_cpu():
+    step = _fit(CPU)
+    with profiling.tracing():
+        step()
+        step()
+    assert {k: v for k, v in profiling.counters().items() if k.startswith("fit.")} == {
+        "fit.steps": 2, "fit.graph_replays": 0}
+
+
 def test_readers_give_none_on_a_program_without_spans(monkeypatch):
     monkeypatch.delattr(profiling, "span_records")
     for name in READINGS:
@@ -374,6 +407,10 @@ def test_card_spans_time_the_device_and_add_no_synchronize():
     assert profiling.span_records() and all(c in offs for on, c in runs if on)
     assert not any("profiling" in f for _, c in runs for f, _ in c)
     assert not any(f.endswith("encoding.py") for _, c in runs for f, _ in c)
+    # the render path's constants (the march's aabb and dt, the
+    # background) are made once, not copied from the host every step
+    assert not any(f.endswith(("renderer.py", "marching.py", "ray_ops.py", "composite.py"))
+                   for _, c in runs for f, _ in c)
     profiling.reset_spans()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]):
