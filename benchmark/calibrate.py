@@ -8,7 +8,8 @@ own runs never run this.
     python3 benchmark/calibrate.py --workload <cell> --seeds 11,12,13 --what half_batch
     python3 benchmark/calibrate.py --workload <cell> --seeds 1,2,3 --what program
 
-``--what`` is ``control``, a fault of ``benchmark/harness/faults.py``, or
+``--what`` is ``control``, a fault of ``benchmark/harness/faults.py`` or of
+the cell's kind (its ``FAULTS``), or
 ``program`` (a sound run with a short window: the lower readings of the
 training cells, whose numbers come from set-up's checked steps); prints one
 JSON line a seed: the seed, the cell's numbers and ``correct``, their
@@ -35,28 +36,31 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True)
-    ap.add_argument("--what", required=True, choices=("control", "program") + faults.FAULTS)
+    ap.add_argument("--what", required=True)
     ap.add_argument("--seconds", type=float, default=2.0)
     args = ap.parse_args()
+    bench = spec.benchmark()
+    w = spec.cell(bench, args.workload)
+    kind = spec.kind(spec.traffic(w["traffic"])["kind"])
+    if args.what not in ("control", "program") + faults.known(kind):
+        ap.error(f"--what {args.what!r}: not control, program or one of {faults.known(kind)}")
     import torch
 
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    bench = spec.benchmark()
-    w = spec.cell(bench, args.workload)
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         if args.what == "control":
             ctx = common.Context(cell=w["name"], cfg=spec.config(w["config"]),
                                  traffic=spec.traffic(w["traffic"]), seed=seed,
                                  seconds=args.seconds, trace=False, device=dev)
-            numbers = faults.control_numbers(spec.kind(ctx.traffic["kind"]), ctx)
+            numbers = faults.control_numbers(kind, ctx)
         else:
             run_args = argparse.Namespace(workload=w["name"], seed=seed, seconds=args.seconds,
                                           trace=0)
             sound = args.what == "program"
-            with contextlib.nullcontext() if sound else faults.plant(args.what):
+            with contextlib.nullcontext() if sound else faults.plant(args.what, kind):
                 numbers = cli.run(run_args, dev, time.perf_counter(), bench)["numbers"]
         common.free(dev)
         correct, _ = compare.verdict(numbers, spec.limits(w["name"]))

@@ -2,7 +2,10 @@
 and the control: the plain reference one precision step down, in the
 program's place.
 
-``plant(name)`` patches the program for the block:
+``plant(name, kind)`` patches the program for the block.  A kind module
+(``harness/kinds/<kind>.py``) may bring faults of its own: where its
+``FAULTS`` lists ``name``, its context manager ``plant(name)`` is planted.
+Otherwise the faults here are:
 
 * ``unchanged``: the optimizer's update returns the state unchanged;
 * ``half_batch``: half of the batch left out, the mean taken over the rest
@@ -34,9 +37,17 @@ def _patched(obj, name, value):
         setattr(obj, name, old)
 
 
+def known(kind=None) -> tuple:
+    """The faults ``plant`` knows for cells of ``kind``."""
+    return FAULTS + tuple(f for f in getattr(kind, "FAULTS", ()) if f not in FAULTS)
+
+
 @contextlib.contextmanager
-def plant(name: str):
-    if name == "unchanged":
+def plant(name: str, kind=None):
+    if name in getattr(kind, "FAULTS", ()):
+        with kind.plant(name):
+            yield
+    elif name == "unchanged":
         with _patched(torch.optim.AdamW, "step", lambda self, closure=None: None), \
                 _patched(torch.optim.Adam, "step", lambda self, closure=None: None):
             yield
@@ -69,7 +80,7 @@ def plant(name: str):
         with _patched(inference, "decode_latents", altered):
             yield
     else:
-        raise ValueError(f"unknown fault {name!r}; known: {FAULTS}")
+        raise ValueError(f"unknown fault {name!r}; known: {known(kind)}")
 
 
 def control_numbers(kind, ctx, requests=(0, 1)) -> Dict[str, float]:

@@ -6,7 +6,8 @@ the card's data-sheet peaks.
 configuration file's ``unet`` section.  Added here: the VAE encoder and
 decoder, the NeRF MLPs, the counts a train step, a request and a fit step
 need, and K1's bytes.  A multiply-add is 2 FLOPs; norms, pointwise work and
-softmax are not counted.  ``PEAK_BF16_FLOPS`` is bench_torch.py's table.
+softmax are not counted.  ``PEAK_BF16_FLOPS`` is a frozen copy of
+``scripts/torch_study.py::PEAK_BF16_FLOPS``.
 """
 
 from __future__ import annotations

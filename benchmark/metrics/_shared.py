@@ -5,6 +5,8 @@ the run has nothing for it to read."""
 import statistics
 
 K1_KERNELS = ("corner8_f2_kernel", "flat_shared_f2_kernel", "flat_f2_kernel", "flat_kernel")
+# the hash encode's forward and backward (stable_nerf_tpu_torch/csrc/hash_encode.cu)
+ENCODE_KERNELS = ("hash_encode_fwd_kernel", "hash_encode_bwd_kernel")
 
 
 def peaks(run):

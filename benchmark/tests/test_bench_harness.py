@@ -8,11 +8,13 @@ marked ``cuda`` and skips without one.
 from __future__ import annotations
 
 import ast
+import contextlib
 import json
 import os
 import shutil
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -81,6 +83,35 @@ def test_every_name_has_its_files():
 
 
 # --------------------------------------------------------- found by name
+
+def test_every_cell_has_a_tiny_twin():
+    """A one-chip cell has its CPU twin in ``tests/tiny/cells/<cell>.json``,
+    whose configuration and traffic are tiny files of their own."""
+    for w in REAL["workloads"]:
+        if w["chips"] != 1:
+            continue
+        path = tinybench.twin_path(w["name"])
+        assert os.path.exists(path), f"{w['name']} has no tiny twin at {path}"
+        twin = spec.load_json(path)
+        assert spec.config(twin["config"], tinybench.TINY)
+        assert spec.traffic(twin["traffic"], tinybench.TINY)
+        assert set(twin["faults"]) <= set(faults.known(tinybench.kind(twin["tiny"]))), twin
+
+
+def test_a_cell_without_a_tiny_twin_is_left_out_of_the_tiny_bench(tmp_path):
+    real = json.loads(json.dumps(REAL))
+    real["workloads"].append({"name": "sdxl_ngp.untwinned", "config": "sdxl_ngp",
+                              "traffic": "train", "chips": 1, "why": "no tiny twin"})
+    for m in real["end_to_end"] + real["per_layer"]:
+        if m["name"] in ("train_step_ms", "train_mfu"):
+            m["workloads"].append("sdxl_ngp.untwinned")
+    bench, _ = tinybench.make(str(tmp_path), real)
+    assert sorted(w["name"] for w in bench["workloads"]) == sorted(tinybench.CELLS)
+    for section in ("end_to_end", "per_layer"):
+        for m in bench[section]:
+            assert set(m.get("workloads", [])) <= set(tinybench.CELLS), m
+    assert spec.cell_metrics(bench, "tiny_joint.train", "end_to_end")[1]["name"] == "train_step_ms"
+
 
 def test_a_new_cell_traffic_and_metric_are_found_by_their_files(tmp_path):
     bench, d = tinybench.make(str(tmp_path))
@@ -225,18 +256,51 @@ def test_flops_and_bytes_at_a_tiny_shape_match_the_hand_count():
     assert flops.vae_encode_flops(v, 1, 4) == (1728 + 2304 + 2 * 2304 + 512 + 2048 + 1152 + 128)
 
 
+# ------------------------------------------------------ the trace readers
+
+@pytest.mark.parametrize("metric", ["hash_encode_ms.fit", "hash_encode_ms.fit_stochastic"])
+def test_hash_encode_ms_reads_the_encode_kernels_of_the_trace(metric):
+    read = spec.metric_reader(metric)
+    kernels = [["void (anonymous namespace)::hash_encode_bwd_kernel<2, 8, float const>(...)",
+                3.0, 32],
+               ["void (anonymous namespace)::corner8_f2_kernel<false, false, int2>(...)", 9.0, 64],
+               ["void (anonymous namespace)::hash_encode_fwd_kernel<2, float const>(...)", 2.0,
+                40]]
+    assert read({"trace": {"units": 4, "kernels": kernels}}) == pytest.approx(5.0 / 4)
+    assert read({"trace": {"units": 4, "kernels": kernels[1:2]}}) is None
+    assert read({"trace": None}) is None
+
+
 # ------------------------------------------------- the check fails faults
 
-@pytest.mark.parametrize("cell,fault", [("tiny_joint.train", "unchanged"),
-                                        ("tiny_joint.train", "half_batch"),
-                                        ("tiny_ngp.fit", "unchanged"),
-                                        ("tiny_ngp.fit", "half_batch"),
-                                        ("tiny_ngp.fit_stochastic", "half_batch"),
-                                        ("tiny_joint.serve", "altered")])
+@pytest.mark.parametrize("cell,fault", tinybench.FAULT_CASES)
 def test_a_broken_timed_path_is_not_correct(tmp_path, cell, fault):
-    with faults.plant(fault):
+    with faults.plant(fault, tinybench.kind(cell)):
         out = _run(tmp_path, cell)
     assert out["result"]["correct"] is False, out["numbers"]
+
+
+def test_a_kind_plants_its_own_faults():
+    """A kind that lists a fault in its ``FAULTS`` plants it with its own
+    ``plant``; the faults it does not list are planted as before."""
+    planted = []
+
+    @contextlib.contextmanager
+    def plant(name):
+        planted.append(name)
+        yield
+
+    kind = types.SimpleNamespace(FAULTS=("zeroed",), plant=plant)
+    assert faults.known(kind) == faults.FAULTS + ("zeroed",)
+    step = torch.optim.Adam.step
+    with faults.plant("zeroed", kind):
+        assert planted == ["zeroed"] and torch.optim.Adam.step is step
+    with faults.plant("unchanged", kind):
+        assert planted == ["zeroed"] and torch.optim.Adam.step is not step
+    assert torch.optim.Adam.step is step
+    with pytest.raises(ValueError, match="zeroed"):
+        with faults.plant("missing", kind):
+            pass
 
 
 @pytest.mark.parametrize("cell", sorted(tinybench.CELLS))
